@@ -5,21 +5,26 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py                   # build + kernel phase + serve phase
     python3 chip_smoke.py --kernels-only    # build + kernel phase only
-    python3 chip_smoke.py --profile         # also trace one serve
+    python3 chip_smoke.py --profile         # also trace one serve of each model
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
-``nvcc``, holds each kernel against its plain PyTorch version at the main
-path's shapes (qwen3-8b: Hq 32, Hkv 8, Dh 128, bf16), then serves four
-requests through ``RealServingEngine`` on qwen3-8b at full width and
-depth with random bf16 weights (CacheFlow two-pointer restoration from an int8 chunk store, suffix
-prefill, greedy decode, every restored cache verified) and checks that each
-kernel launched during the serve.  The second-to-last line of stdout is a
+``nvcc``, holds each kernel against its plain PyTorch version at the shapes
+of the port's two paths (qwen3-8b: Hq 32, Hkv 8, Dh 128, bf16;
+recurrentgemma-2b: Hq 10, Hkv 1, Dh 256 over a 2048-slot ring with a
+window, and the RG-LRU scan over width 2560 in f32), then serves four
+requests through ``RealServingEngine`` on each model at full width and
+depth with random bf16 weights — qwen3-8b with CacheFlow two-pointer
+restoration from an int8 chunk store, recurrentgemma-2b with restoration of
+attention KV and RG-LRU state — with suffix prefill, greedy decode and
+every restored cache verified, and checks that each kernel of a path
+launched during that path's serve.  The second-to-last line of stdout is a
 ``{"kernels": [...]}`` summary; the last line is the ok/device record.
 Any failure raises (exit code != 0).  Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -31,6 +36,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 # Largest |kernel - plain| the attention checks accept.  Outputs of the N(0,1)
 # inputs reach 0.1-0.3.  Measured on an H100 (PERF.md): prefill differs by at
 # most 1.95e-3, one bf16 step at its largest output 0.27 (the plain version
@@ -38,6 +44,9 @@ BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 # by at most 1.2e-4.  The bounds are about twice and eight times that.
 PREFILL_TOL = 4e-3
 DECODE_TOL = 1e-3
+# rglru_scan repeats its plain version's IEEE arithmetic step by step (expf,
+# a multiply, then an add, all in f32), so it is held to equality.
+RGLRU_TOL = 0.0
 
 
 def card_line() -> str:
@@ -47,8 +56,8 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -241,6 +250,8 @@ def kernel_phase(dev, card: str) -> dict:
         library_ms=None, bound_ms=bms, bound_by=by,
         shape=f"q (36,1,{cs},{hkv},{dh}) int8 -> bf16")
 
+    hybrid_kernel_cases(dev, g, flush, res)
+
     for name, r in res.items():
         line = {("max_err" if k == "max_abs_err" else "kernel_ms" if k == "ms" else k): v
                 for k, v in r.items()}
@@ -252,9 +263,155 @@ def kernel_phase(dev, card: str) -> dict:
     return res
 
 
+def ring_kpos(s: int, q_pos: int, dev):
+    """kpos of a ring cache of ``s`` slots after position ``q_pos`` was
+    written: slot j holds the latest position p <= q_pos with p % s == j."""
+    import torch
+    j = torch.arange(s, dtype=torch.int32, device=dev)
+    return q_pos - ((q_pos - j) % s)
+
+
+def hybrid_kernel_cases(dev, g, flush, res: dict):
+    """recurrentgemma-2b's kernels at its shapes: attention with Hq 10 on one
+    KV head at Dh 256 over a 2048-slot ring cache with a 2048 window, and
+    the RG-LRU scan over (1, S, 2560) f32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+
+    hq, hkv, dh, s, win = 10, 1, 256, 2048, 2048
+    scale = dh ** -0.5
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    def err(out, ref):
+        return float((out.float() - ref.float()).abs().max())
+
+    def stale(kp, q_last, n, v_):
+        """Make n random slots hold a position one ring turn older (outside
+        the window of every query up to q_last) with V = 100 there."""
+        idx = torch.randperm(kp.numel(), generator=g, device=dev)[:n]
+        kp[idx] -= s
+        v_[:, kp <= q_last - win] = 100.0
+
+    def sdpa_args(q4, k_, v_, kp, qpos):
+        mask = (kp[None] >= 0) & (kp[None] <= qpos[:, None]) \
+            & (kp[None] > qpos[:, None] - win)
+        return (q4.transpose(1, 2), k_.transpose(1, 2).repeat_interleave(hq // hkv, 1),
+                v_.transpose(1, 2).repeat_interleave(hq // hkv, 1), mask)
+
+    # flash_prefill: the last 256-token chunk of a 2048-token prefix over the
+    # full cache (timed); the 64-token suffix at 2048 over the ring it just
+    # wrapped (slots 0-63 now hold 2048-2111); the same with stale slots
+    sq, q_off = 256, s - 256
+    q = randn(1, sq, hq, dh)
+    k, v = randn(1, s, hkv, dh), randn(1, s, hkv, dh)
+    kpos = torch.arange(s, dtype=torch.int32, device=dev)
+    kw = dict(scale=scale, window=win)
+    out = flash_prefill(q, k, v, kpos, q_off, **kw)
+    cases = [dict(max_abs_err=err(out, flash_prefill_plain(q, k, v, kpos, q_off, **kw)),
+                  slots=s, at=q_off, rows=sq, ring="full")]
+    qs_ = randn(1, 64, hq, dh)
+    kr = ring_kpos(s, s + 63, dev)
+    cases.append(dict(max_abs_err=err(flash_prefill(qs_, k, v, kr, s, **kw),
+                                      flash_prefill_plain(qs_, k, v, kr, s, **kw)),
+                      slots=s, at=s, rows=64, ring="wrapped"))
+    v2 = v.clone()
+    kr2 = kr.clone()
+    stale(kr2, s, 200, v2)
+    cases.append(dict(max_abs_err=err(flash_prefill(qs_, k, v2, kr2, s, **kw),
+                                      flash_prefill_plain(qs_, k, v2, kr2, s, **kw)),
+                      slots=s, at=s, rows=64, ring="wrapped, 200 stale slots"))
+    torch.cuda.synchronize()
+    qpos = q_off + torch.arange(sq, device=dev)
+    pairs = int(((kpos[None] >= 0) & (kpos[None] <= qpos[:, None])
+                 & (kpos[None] > qpos[:, None] - win)).sum())
+    bms, by = bound(nbytes(q, k, v, kpos, out), 4 * hq * dh * pairs)
+    qt, kt, vt, mask = sdpa_args(q, k, v, kpos, qpos)
+    res["flash_prefill_dh256"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in cases), tol=PREFILL_TOL,
+        cases=cases,
+        ms=time_ms(lambda: flash_prefill(q, k, v, kpos, q_off, **kw), flush=flush),
+        plain_ms=time_ms(lambda: flash_prefill_plain(q, k, v, kpos, q_off, **kw),
+                         flush=flush, iters=7),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale), flush=flush),
+        bound_ms=bms, bound_by=by,
+        shape=f"q (1,{sq},{hq},{dh}) over {s} keys, q_offset {q_off}, window {win}, bf16")
+    del qt, kt, vt, mask
+
+    # flash_decode: the last decode step of the serve's longest request
+    # (position 2126) over the wrapped ring (timed), then with stale slots
+    qd = randn(1, hq, dh)
+    qp = s + 64 + 14
+    kr = ring_kpos(s, qp, dev)
+    out = flash_decode(qd, k, v, kr, qp, **kw)
+    cases = [dict(max_abs_err=err(out, flash_decode_plain(qd, k, v, kr, qp, **kw)),
+                  slots=s, at=qp, ring="wrapped")]
+    kr2, v2 = kr.clone(), v.clone()
+    stale(kr2, qp, 200, v2)
+    cases.append(dict(max_abs_err=err(flash_decode(qd, k, v2, kr2, qp, **kw),
+                                      flash_decode_plain(qd, k, v2, kr2, qp, **kw)),
+                      slots=s, at=qp, ring="wrapped, 200 stale slots"))
+    torch.cuda.synchronize()
+    bms, by = bound(nbytes(qd, k, v, kr, out), 4 * hq * dh * s)
+    qt, kt, vt, mask = sdpa_args(qd[:, None], k, v, kr,
+                                 torch.tensor([qp], device=dev))
+    res["flash_decode_dh256"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in cases), tol=DECODE_TOL,
+        cases=cases,
+        ms=time_ms(lambda: flash_decode(qd, k, v, kr, qp, **kw), flush=flush),
+        plain_ms=time_ms(lambda: flash_decode_plain(qd, k, v, kr, qp, **kw),
+                         flush=flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale), flush=flush),
+        bound_ms=bms, bound_by=by,
+        shape=f"q (1,{hq},{dh}) over a {s}-slot ring at position {qp}, window {win}, bf16")
+    del q, k, v, v2, qt, kt, vt, mask
+
+    # rglru_scan at every S of the serve: 256 (a restoration chunk, timed),
+    # 512 (a layer-wise pass), 64 (suffix prefill), 1 (decode, timed);
+    # log_a in [-0.5, 0) as the gates give, h0 != 0
+    w = 2560
+    cases, timed = [], {}
+    for sl in (256, 512, 64, 1):
+        la = -0.5 * torch.rand(1, sl, w, generator=g, device=dev)
+        bb = torch.randn(1, sl, w, generator=g, device=dev)
+        h0 = torch.randn(1, w, generator=g, device=dev)
+        h, hl = rglru_scan(la, bb, h0)
+        hp, hlp = rglru_scan_plain(la, bb, h0)
+        torch.cuda.synchronize()
+        cases.append(dict(S=sl, max_abs_err=max(err(h, hp), err(hl, hlp)),
+                          bit_exact=torch.equal(h, hp) and torch.equal(hl, hlp)))
+        if sl in (256, 1):
+            bms, by = bound(nbytes(la, bb, h0, h, hl), 3 * la.numel(), F32_FLOP_PER_S)
+            timed[sl] = dict(
+                ms=time_ms(lambda: rglru_scan(la, bb, h0), flush=flush),
+                plain_ms=time_ms(lambda: rglru_scan_plain(la, bb, h0), flush=flush,
+                                 iters=7),
+                bound_ms=bms, bound_by=by)
+    res["rglru_scan"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in cases), tol=RGLRU_TOL,
+        bit_exact=all(c["bit_exact"] for c in cases), cases=cases,
+        **timed[256], library_ms=None, s1=timed[1],
+        shape=f"log_a, b (1,256,{w}) f32, h0 (1,{w}) f32")
+
+
 # ---------------------------------------------------------------------------
 # Serve phase: the port's main path at full width
 # ---------------------------------------------------------------------------
+
+
+# the kernels each path must launch: qwen3-8b restores from an int8 chunk
+# store through the fused datapath; recurrentgemma-2b's windowed caches take
+# no chunk store (its loads copy the ground-truth payload)
+QWEN3_KERNELS = ("flash_prefill", "flash_decode", "kv_restore", "kv_quantize",
+                 "kv_dequantize")
+HYBRID_KERNELS = ("rglru_scan", "flash_prefill", "flash_decode")
 
 
 def counters():
@@ -262,22 +419,32 @@ def counters():
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize
     from repro_torch.kernels.kv_restore import kv_restore_scatter
+    from repro_torch.kernels.rglru_scan import rglru_scan
     return {"flash_prefill": flash_prefill, "flash_decode": flash_decode,
             "kv_restore": kv_restore_scatter, "kv_quantize": kv_quantize,
-            "kv_dequantize": kv_dequantize}
+            "kv_dequantize": kv_dequantize, "rglru_scan": rglru_scan}
+
+
+def zero_counters():
+    for w in counters().values():
+        w.launches = 0
+
+
+def read_counters() -> dict:
+    return {n: w.launches for n, w in counters().items()}
 
 
 def profile_serve(serve) -> dict:
-    """One more serve under torch.profiler: device time by kernel and the
-    share of the traced wall time the device spent in kernels and copies
-    (summed over streams).  Separate from the timed runs: tracing slows
-    the host."""
+    """One more serve (``serve()``) under torch.profiler: device time by
+    kernel and the share of the traced wall time the device spent in
+    kernels and copies (summed over streams).  Separate from the timed
+    runs: tracing slows the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve("int8")
+        serve()
         wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
@@ -308,7 +475,6 @@ def serve_phase(dev, card: str, profile: bool = False) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = model.num_params(params)
-    wrappers = counters()
 
     def serve(quant):
         store = ChunkStore(chunk_size=16, quant=quant, default_tier="host", device=dev)
@@ -323,18 +489,17 @@ def serve_phase(dev, card: str, profile: bool = False) -> dict:
         return eng, store, reqs, rep, time.perf_counter() - t0
 
     # the main path: every launch counter from 0 just before, read just after
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counters()
     torch.cuda.reset_peak_memory_stats()
     eng, store, reqs, rep, serve_s = serve("int8")
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the same requests from an unquantized store: loads are then raw copies,
     # so verify's error is the recompute path's own (token- vs layer-wise)
     eng_raw, _, _, _, raw_s = serve("none")
     recompute_err = eng_raw.executor.verify_errs
     if profile:
-        print(json.dumps({"profile": profile_serve(serve)}))
+        print(json.dumps({"profile": profile_serve(lambda: serve("int8"))}))
 
     ex = eng.executor
     strategies = {r.request_id: ex._live[r.request_id]["plans"][0].strategy
@@ -355,7 +520,7 @@ def serve_phase(dev, card: str, profile: bool = False) -> dict:
                                  n_tokens=len(o["tokens"]), tokens=o["tokens"][:6])
     dp = eng.datapath
     result = dict(
-        card=card, layers=cfg.num_layers, d_model=cfg.d_model,
+        card=card, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
         params=n_params, init_s=init_s, serve_s=serve_s, serve_none_s=raw_s,
         peak_mem_gb=peak_gb, stats=rep.stats, compute_busy=rep.compute_busy,
         io_busy=rep.io_busy, decode_busy=rep.decode_busy,
@@ -373,11 +538,86 @@ def serve_phase(dev, card: str, profile: bool = False) -> dict:
     print(json.dumps({"serve": result}, default=str))
     if bad:
         raise AssertionError(f"bad outputs (logits shape/finite, token count): {bad}")
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in QWEN3_KERNELS if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels not launched during serve: {missing}")
     if sorted(set(strategies.values())) != ["layer", "token"]:
         raise AssertionError(f"expected layer- and token-wise plans: {strategies}")
+    return result
+
+
+def hybrid_serve_phase(dev, card: str, profile: bool = False) -> dict:
+    """The port's second path: recurrentgemma-2b at full width and depth (26
+    layers: 18 RG-LRU, 8 local attention) with random bf16 weights, four
+    requests whose prefixes stay within the 2048-token window (so the ring
+    wraps only in suffix prefill and decode), verify on — attention KV and
+    the RG-LRU conv/lru state of every restored cache."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import RealServingEngine, Request
+
+    cfg = get_config("recurrentgemma-2b")
+    t0 = time.perf_counter()
+    model = Model(cfg, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                  device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def serve():
+        eng = RealServingEngine(model, params, system="cacheflow", stages=2,
+                                chunk_size=256, l_delta=1024, max_batch=2,
+                                kvstore=None, device=dev, seed=0)
+        reqs = [Request(f"r{n}", 0.0, n, 64, decode_len=16)
+                for n in (512, 1024, 1536, 2048)]
+        t0 = time.perf_counter()
+        rep = eng.serve(reqs, verify=True)
+        torch.cuda.synchronize()
+        return eng, reqs, rep, time.perf_counter() - t0
+
+    # this path: every launch counter from 0 just before, read just after
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, rep, serve_s = serve()
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if profile:
+        print(json.dumps({"hybrid_profile": profile_serve(serve)}))
+
+    ex = eng.executor
+    strategies = {r.request_id: ex._live[r.request_id]["plans"][0].strategy
+                  for r in reqs}
+    out, bad = {}, []
+    for r in reqs:
+        o = ex.outputs(r.request_id)
+        logits = o["first_logits"].float()
+        errs = ex.verify_errs.get(r.request_id, {})
+        if (tuple(logits.shape) != (1, cfg.vocab_size)
+                or not bool(torch.isfinite(logits).all())
+                or len(o["tokens"]) != r.decode_len
+                or not {"k", "v", "kpos", "conv", "lru"} <= set(errs)):
+            bad.append(r.request_id)
+        out[r.request_id] = dict(strategy=strategies[r.request_id],
+                                 verify_max_err=errs, n_tokens=len(o["tokens"]),
+                                 tokens=o["tokens"][:6])
+    result = dict(
+        card=card, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        params=model.num_params(params), init_s=init_s, serve_s=serve_s,
+        peak_mem_gb=peak_gb, stats=rep.stats, compute_busy=rep.compute_busy,
+        io_busy=rep.io_busy, decode_busy=rep.decode_busy,
+        overlap_decode_restore=rep.overlap_decode_restore, ttfts=rep.ttfts,
+        restore_secs=rep.restore_secs, requests=out, launches=launches)
+    print(json.dumps({"hybrid_serve": result}, default=str))
+    if bad:
+        raise AssertionError(f"bad outputs (logits shape/finite, token count, "
+                             f"verified fields): {bad}")
+    missing = [n for n in HYBRID_KERNELS if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched during the hybrid serve: {missing}")
+    want = {"r512": "layer", "r1024": "token", "r1536": "token", "r2048": "token"}
+    if strategies != want:
+        raise AssertionError(f"expected strategies {want}, got {strategies}")
     return result
 
 
@@ -386,7 +626,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, skip the serve")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one serve with torch.profiler")
+                    help="also trace one more serve of each path with torch.profiler")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)   # lines survive a kill
 
@@ -406,30 +646,45 @@ def main(argv=None) -> int:
     print(json.dumps({"build": str(so.relative_to(HERE)),
                       "build_s": time.perf_counter() - t0}))
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or line.startswith("=="):
+        if any(w in line for w in ("Compiling entry", "registers", "spill")) \
+                or line.startswith("=="):
             print(line.strip())
 
     t0 = time.perf_counter()
     kres = kernel_phase(dev, card)
     print(json.dumps({"kernel_phase_s": time.perf_counter() - t0}))
-    sres = None if args.kernels_only else serve_phase(dev, card, args.profile)
+    sres = hres = None
+    if not args.kernels_only:
+        sres = serve_phase(dev, card, args.profile)
+        # the engine and executor hold each other: collect the cycle so the
+        # next path's peak memory does not count qwen3-8b's leftovers
+        gc.collect()
+        torch.cuda.empty_cache()
+        hres = hybrid_serve_phase(dev, card, args.profile)
 
-    sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
-                                 "src/repro/kernels/flash_prefill/kernel.py:81"),
-               "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
-                                "src/repro/kernels/flash_decode/kernel.py:69"),
-               "kv_restore": ("src/repro_torch/csrc/kv_restore.cu",
-                              "src/repro/kernels/kv_restore/kernel.py:55"),
-               "kv_quantize": ("src/repro_torch/csrc/kv_quant.cu",
-                               "src/repro/kernels/kv_quant/kernel.py:54"),
-               "kv_dequantize": ("src/repro_torch/csrc/kv_quant.cu",
-                                 "src/repro/kernels/kv_quant/kernel.py:84")}
+    # (kernel-phase entry, source, TPU kernel, the serve whose shapes it has)
+    fp = ("src/repro_torch/csrc/flash_prefill.cu",
+          "src/repro/kernels/flash_prefill/kernel.py:81")
+    fd = ("src/repro_torch/csrc/flash_decode.cu",
+          "src/repro/kernels/flash_decode/kernel.py:69")
+    table = [("flash_prefill", *fp, sres), ("flash_decode", *fd, sres),
+             ("kv_restore", "src/repro_torch/csrc/kv_restore.cu",
+              "src/repro/kernels/kv_restore/kernel.py:55", sres),
+             ("kv_quantize", "src/repro_torch/csrc/kv_quant.cu",
+              "src/repro/kernels/kv_quant/kernel.py:54", sres),
+             ("kv_dequantize", "src/repro_torch/csrc/kv_quant.cu",
+              "src/repro/kernels/kv_quant/kernel.py:84", sres),
+             ("flash_prefill_dh256", *fp, hres), ("flash_decode_dh256", *fd, hres),
+             ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
+              "src/repro/kernels/rglru_scan/kernel.py:49", hres)]
     rows = []
-    for name, (src, replaces) in sources.items():
+    for name, src, replaces, served in table:
         k = kres[name]
+        counter = name.replace("_dh256", "")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
-                     "launches": sres["launches"][name] if sres else None,
+                     "launches": served["launches"][counter] if served else None,
+                     "path": served["arch"] if served else None,
                      "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
                      "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
                      "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms")})

@@ -12,6 +12,7 @@ from repro_torch.config import ModelConfig
 # arch-id -> module name
 _REGISTRY = {
     "qwen3-8b": "qwen3_8b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ALL_ARCHS = tuple(_REGISTRY)

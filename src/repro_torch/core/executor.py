@@ -609,8 +609,11 @@ def _plan_of(live: dict, op: ScheduledOp) -> RequestPlan:
 
 
 def _state_snapshot(cfg, cache: dict) -> dict:
+    """Copies of the recurrent state fields: the live cache is updated in
+    place by the next chunk, and a snapshot must keep this chunk's state
+    (the reference's snapshots are immutable arrays)."""
     out = {}
     for f in ("conv", "lru", "wkv", "shift_tm", "shift_cm"):
         if f in cache:
-            out[f] = cache[f]
+            out[f] = cache[f].clone()
     return out

@@ -7,26 +7,26 @@
 //
 // What bounds it on the H100: decode reads the whole cache once for one
 // token (2 FLOP per byte read), so device-memory bandwidth bounds it: a
-// 4096-slot cache at Hkv 8, Dh 128 is 16.8 MB per layer, 5 us at 3.35 TB/s.
-// Design: one block per (batch row, KV head) holds all G = Hq/Hkv query
-// heads of the group, so every K/V tile is loaded from device memory once
-// for the whole group (the GQA saving), staged through shared memory in
-// 64-slot tiles with 16-byte-aligned rows padded against bank conflicts.
-// A tile with no visible slot is skipped.  Known limit, left for later
-// work: B*Hkv blocks (8 at batch 1) cannot fill 132 SMs; a split over S
-// with a second combining pass (split-K) is the fix.
+// 4096-slot cache at Hkv 8, Dh 128 is 16.8 MB per layer, 5 us at 3.35 TB/s;
+// RecurrentGemma's 2048-slot window at Hkv 1, Dh 256 is 2.1 MB, 0.6 us.
+// Design: one block per (query head, batch row) and Dh threads, thread d
+// owning output column d; the G heads of a KV head read the same K/V
+// tiles, which L2 serves after the first.  (The first version held all G
+// heads of a KV head in one block: 8 blocks at qwen3-8b's shapes and one
+// block at RecurrentGemma's single KV head, which cannot use the card.)
+// K/V are staged through shared memory in tiles of 64 (Dh 128) or 32
+// (Dh 256) slots with 16-byte global loads; each slot's score is a dot
+// product split over Dh/BK threads, reduced by warp shuffles, with the row
+// stride chosen so those threads hit distinct banks.  A tile with no
+// visible slot is skipped.  Known limit, left for later work: Hq * B
+// blocks walk the cache in sequence; a split over S with a second
+// combining pass (split-K) is the fix.
 #include "common.cuh"
 
 namespace {
 
-constexpr int DH = 128;       // head dim the kernel is written for
-constexpr int BK = 64;        // slots per tile
-constexpr int KSTR = DH + 2;  // odd word stride: column reads hit 32 banks
-constexpr int MAXG = 8;       // query heads per KV head the block can hold
-constexpr int NT = 256;       // threads per block
-
-// grid (Hkv, B), block NT threads
-__global__ void __launch_bounds__(NT)
+template <int DH, int BK>
+__global__ void __launch_bounds__(DH)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
@@ -34,87 +34,94 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ out,
                     int S, int Hq, int Hkv, int G, int q_pos, int window,
                     float scale) {
+  constexpr int NT = DH;         // threads; thread d owns output column d
+  constexpr int TPP = NT / BK;   // threads sharing one slot's dot product
+  // row stride in 32-bit words = DH/2 + TPP: the TPP threads of each of
+  // the 32/TPP slots a warp scores at once read distinct banks
+  constexpr int KSTR = DH + 2 * TPP;
   __shared__ __align__(16) __nv_bfloat16 Ks[BK][KSTR];
   __shared__ __align__(16) __nv_bfloat16 Vs[BK][KSTR];
-  __shared__ float qs[MAXG][DH];
-  __shared__ float sc[MAXG][BK];
-  __shared__ float ms[MAXG], ls[MAXG], cs[MAXG];
+  __shared__ float qs[DH];
+  __shared__ float sc[BK];
+  __shared__ float m_s, l_s, c_s;
   __shared__ int kps[BK];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int h0 = kvh * G;
-  const int n_out = G * DH;   // outputs of the block, <= 4 per thread
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / G;
 
-  for (int i = tid; i < n_out; i += NT)
-    qs[i / DH][i % DH] = __bfloat162float(q[((size_t)b * Hq + h0) * DH + i]);
-  if (tid < G) {
-    ms[tid] = -INFINITY;
-    ls[tid] = 0.f;
+  qs[tid] = __bfloat162float(q[((size_t)b * Hq + h) * DH + tid]);
+  if (tid == 0) {
+    m_s = -INFINITY;
+    l_s = 0.f;
   }
-  float acc[MAXG * DH / NT];
-#pragma unroll
-  for (int i = 0; i < MAXG * DH / NT; ++i) acc[i] = 0.f;
+  float acc = 0.f;
 
   const size_t kv_row = (size_t)Hkv * DH;
   const __nv_bfloat16* kb = k + ((size_t)b * S) * kv_row + (size_t)kvh * DH;
   const __nv_bfloat16* vb = v + ((size_t)b * S) * kv_row + (size_t)kvh * DH;
+  const int j_own = tid / TPP, part = tid % TPP;
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     int alive = 0;
-    for (int i = tid; i < BK; i += NT) {
-      const int j = k0 + i;
+    if (tid < BK) {
+      const int j = k0 + tid;
       const int kp = j < S ? kpos[j] : -1;
-      kps[i] = kp;
-      alive |= kp >= 0 && kp <= q_pos && (window <= 0 || kp > q_pos - window);
+      kps[tid] = kp;
+      alive = kp >= 0 && kp <= q_pos && (window <= 0 || kp > q_pos - window);
     }
     if (!__syncthreads_or(alive)) continue;
 
-    // stage the tile as 32-bit words (rows are 4-byte aligned)
-    for (int idx = tid; idx < BK * (DH / 2); idx += NT) {
-      const int r = idx / (DH / 2), c2 = (idx % (DH / 2)) * 2;
+    // stage the tile: 16-byte global loads, 32-bit shared stores (the
+    // padded rows are 4-byte aligned)
+    for (int idx = tid; idx < BK * (DH / 8); idx += NT) {
+      const int r = idx / (DH / 8), c8 = (idx % (DH / 8)) * 8;
       const int j = k0 + r;
-      uint32_t kw = 0u, vw = 0u;
+      uint4 kw = make_uint4(0, 0, 0, 0), vw = make_uint4(0, 0, 0, 0);
       if (j < S) {
-        kw = *reinterpret_cast<const uint32_t*>(kb + (size_t)j * kv_row + c2);
-        vw = *reinterpret_cast<const uint32_t*>(vb + (size_t)j * kv_row + c2);
+        kw = *reinterpret_cast<const uint4*>(kb + (size_t)j * kv_row + c8);
+        vw = *reinterpret_cast<const uint4*>(vb + (size_t)j * kv_row + c8);
       }
-      *reinterpret_cast<uint32_t*>(&Ks[r][c2]) = kw;
-      *reinterpret_cast<uint32_t*>(&Vs[r][c2]) = vw;
+      uint32_t* kd = reinterpret_cast<uint32_t*>(&Ks[r][c8]);
+      uint32_t* vd = reinterpret_cast<uint32_t*>(&Vs[r][c8]);
+      kd[0] = kw.x; kd[1] = kw.y; kd[2] = kw.z; kd[3] = kw.w;
+      vd[0] = vw.x; vd[1] = vw.y; vd[2] = vw.z; vd[3] = vw.w;
     }
     __syncthreads();
 
-    // scores: one (head, slot) pair per thread and pass
-    for (int pr = tid; pr < G * BK; pr += NT) {
-      const int g = pr / BK, j = pr % BK;
-      float dot = 0.f;
+    // score of slot j_own: TPP threads each take every TPP-th pair of
+    // columns, then a shuffle sum over the TPP neighbouring lanes
+    float dot = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < DH; d += 2) {
-        const __nv_bfloat162 kk = *reinterpret_cast<const __nv_bfloat162*>(&Ks[j][d]);
-        dot = fmaf(qs[g][d], __low2float(kk), dot);
-        dot = fmaf(qs[g][d + 1], __high2float(kk), dot);
-      }
-      const int kp = kps[j];
+    for (int w = part; w < DH / 2; w += TPP) {
+      const __nv_bfloat162 kk = *reinterpret_cast<const __nv_bfloat162*>(&Ks[j_own][2 * w]);
+      dot = fmaf(qs[2 * w], __low2float(kk), dot);
+      dot = fmaf(qs[2 * w + 1], __high2float(kk), dot);
+    }
+#pragma unroll
+    for (int off = 1; off < TPP; off <<= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (part == 0) {
+      const int kp = kps[j_own];
       const bool ok = kp >= 0 && kp <= q_pos && (window <= 0 || kp > q_pos - window);
-      sc[g][j] = ok ? dot * scale : -INFINITY;
+      sc[j_own] = ok ? dot * scale : -INFINITY;
     }
     __syncthreads();
 
-    // per head: tile max, probabilities, running sum (warp g owns head g)
-    if (warp < G) {
-      const int g = warp;
+    // tile max, probabilities, running sum (warp 0)
+    if (tid < 32) {
       float mx = -INFINITY;
-      for (int j = lane; j < BK; j += 32) mx = fmaxf(mx, sc[g][j]);
+      for (int j = lane; j < BK; j += 32) mx = fmaxf(mx, sc[j]);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = ms[g];
+      const float m_old = m_s;
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
       for (int j = lane; j < BK; j += 32) {
-        const float x = sc[g][j];
+        const float x = sc[j];
         const float p = x == -INFINITY ? 0.f : expf(x - m_new);
-        sc[g][j] = p;
+        sc[j] = p;
         sum += p;
       }
 #pragma unroll
@@ -122,49 +129,50 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
       if (lane == 0) {
         const float c = m_new == -INFINITY ? 1.f : expf(m_old - m_new);
-        ms[g] = m_new;
-        ls[g] = ls[g] * c + sum;
-        cs[g] = c;
+        m_s = m_new;
+        l_s = l_s * c + sum;
+        c_s = c;
       }
     }
     __syncthreads();
 
-    // acc[(g, d)] = acc * corr[g] + sum_j p[g][j] V[j][d]
-#pragma unroll
-    for (int i = 0; i < MAXG * DH / NT; ++i) {
-      const int o = tid + i * NT;
-      if (o < n_out) {
-        const int g = o / DH, d = o % DH;
-        float a = acc[i] * cs[g];
-        for (int j = 0; j < BK; ++j) a = fmaf(sc[g][j], __bfloat162float(Vs[j][d]), a);
-        acc[i] = a;
-      }
-    }
+    // acc = acc * corr + sum_j p[j] V[j][tid]
+    float a = acc * c_s;
+#pragma unroll 8
+    for (int j = 0; j < BK; ++j) a = fmaf(sc[j], __bfloat162float(Vs[j][tid]), a);
+    acc = a;
     __syncthreads();  // tile consumed before the next one overwrites it
   }
 
-#pragma unroll
-  for (int i = 0; i < MAXG * DH / NT; ++i) {
-    const int o = tid + i * NT;
-    if (o < n_out) {
-      const float l = fmaxf(ls[o / DH], 1e-30f);
-      out[((size_t)b * Hq + h0) * DH + o] = __float2bfloat16_rn(acc[i] / l);
-    }
-  }
+  out[((size_t)b * Hq + h) * DH + tid] = __float2bfloat16_rn(acc / fmaxf(l_s, 1e-30f));
 }
 
-}  // namespace
-
-// q (B, Hq, 128), k/v (B, S, Hkv, 128) bf16, kpos (S,) int32 ->
-// out (B, Hq, 128) bf16.  G = Hq / Hkv <= 8.
-extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
-                                 const void* kpos, void* out, int B, int S,
-                                 int Hq, int Hkv, int q_pos, int window,
-                                 float scale, void* stream) {
-  dim3 grid(Hkv, B);
-  flash_decode_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+template <int DH, int BK>
+int launch(const void* q, const void* k, const void* v, const void* kpos,
+           void* out, int B, int S, int Hq, int Hkv, int q_pos, int window,
+           float scale, cudaStream_t stream) {
+  dim3 grid(Hq, B);
+  flash_decode_kernel<DH, BK><<<grid, DH, 0, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const int*)kpos, (__nv_bfloat16*)out, S, Hq,
       Hkv, Hq / Hkv, q_pos, window, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q (B, Hq, Dh), k/v (B, S, Hkv, Dh) bf16, kpos (S,) int32 ->
+// out (B, Hq, Dh) bf16.  Dh is 128 or 256; Hq must be a multiple of Hkv.
+extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
+                                 const void* kpos, void* out, int B, int S,
+                                 int Hq, int Hkv, int Dh, int q_pos,
+                                 int window, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Dh == 128)
+    return launch<128, 64>(q, k, v, kpos, out, B, S, Hq, Hkv, q_pos, window,
+                           scale, st);
+  if (Dh == 256)
+    return launch<256, 32>(q, k, v, kpos, out, B, S, Hq, Hkv, q_pos, window,
+                           scale, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -11,26 +11,31 @@
 // else -1.  Online softmax in f32; probabilities are rounded to bf16 before
 // the P.V product, as the reference does.
 //
-// What bounds it on the H100: at the main path's shapes (a 256-token chunk
-// over up to 4096 keys, Hq 32, Hkv 8, Dh 128) the work is ~17 GFLOP over
-// ~21 MB, i.e. ~800 FLOP/byte, above the card's ~295 FLOP/byte ridge: the
-// tensor cores bound it.  Design: both products run on the tensor cores
-// with warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate); one block
-// owns one KV head and 16*(warps/G) query rows, and its warps (G query
-// heads x row tiles) share every K/V tile staged in shared memory, so a
-// K/V tile is read once per block for all G = Hq/Hkv heads.  A key tile
-// none of whose slots is visible to any query of the block is skipped
-// (decided from kpos, so the skip is exact for any cache layout).  Ragged
-// Sq and S are masked in the kernel: no padding copies.  Simple first:
-// no wgmma, no TMA, no software pipelining (later work).
+// What bounds it on the H100: at qwen3-8b's shapes (a 256-token chunk over
+// up to 4096 keys, Hq 32, Hkv 8, Dh 128) the work is ~17 GFLOP over ~21 MB,
+// i.e. ~800 FLOP/byte, above the card's ~295 FLOP/byte ridge: the tensor
+// cores bound it.  RecurrentGemma's (Hq 10, Hkv 1, Dh 256, a window of 2048
+// slots) is ~2.7 GFLOP over ~3.4 MB, operation-bound as well.
+// Design: both products run on the tensor cores with warp-level mma.sync
+// m16n8k16 (bf16 in, f32 accumulate).  A block owns `hpb` query heads of
+// one KV head (hpb = the largest divisor of G = Hq/Hkv that is <= 8, so
+// G = 10 runs as two blocks of 5 heads) and 16*rt query rows; its warps
+// (hpb heads x rt row tiles) share every K/V tile staged in shared memory.
+// The kernel is a template on the head dim: at Dh 128 each warp keeps its
+// Q fragments in registers (215 registers, no spills); at Dh 256 the O
+// accumulators alone take 128 registers a thread, so Q is staged in shared
+// memory and read one 16-column fragment at a time, and the key tile is
+// halved to 32 keys to shrink the score registers.  A key tile none of
+// whose slots is visible to any query of the block is skipped (decided from
+// kpos, so the skip is exact for any cache layout).  Ragged Sq and S are
+// masked in the kernel: no padding copies.  Simple first: no wgmma, no TMA,
+// no software pipelining (later work).
 #include "common.cuh"
 
 namespace {
 
-constexpr int DH = 128;       // head dim the kernel is written for
-constexpr int BK = 64;        // keys per tile
-constexpr int KSTR = DH + 8;  // padded shared-memory row, bf16 elements
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int MAX_WARPS = 8;  // warps a block may have (__launch_bounds__)
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
@@ -62,26 +67,45 @@ __device__ __forceinline__ bool visible(int kp, int qpos, int window) {
   return kp >= 0 && kp <= qpos && (window <= 0 || kp > qpos - window);
 }
 
-// grid (ceil(Sq / rows), Hkv, B); block = G * rt warps; warp w serves query
-// head kvh*G + w%G and the 16-row tile w/G of the block's `rows` rows.
-__global__ void __launch_bounds__(256)
+// Dynamic shared memory of one block: K and V tiles (BK x KSTR bf16), the
+// tile's kpos (BK ints) and, when QSMEM, 16 Q rows for each warp.
+template <int DH, int BK, bool QSMEM>
+struct Smem {
+  static constexpr int KSTR = DH + 8;  // padded row, bf16 elements
+  static constexpr size_t kv = (size_t)BK * KSTR * 2;
+  static constexpr size_t q_off = 2 * kv + BK * sizeof(int);
+  static size_t bytes(int warps) {
+    return q_off + (QSMEM ? (size_t)warps * 16 * KSTR * 2 : 0);
+  }
+};
+
+// grid (ceil(Sq / rows), Hkv * G / hpb, B); block = hpb * rt warps; warp w
+// serves query head kvh*G + grp*hpb + w%hpb and the 16-row tile w/hpb of
+// the block's `rows` rows.
+template <int DH, int BK, bool QSMEM>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const int* __restrict__ kpos,
                      __nv_bfloat16* __restrict__ out,
-                     int Sq, int S, int Hq, int Hkv, int G, int rows,
+                     int Sq, int S, int Hq, int Hkv, int G, int hpb, int rows,
                      int q_offset, int window, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[BK][KSTR];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BK][KSTR];
-  __shared__ int kps[BK];
+  using SM = Smem<DH, BK, QSMEM>;
+  constexpr int KSTR = SM::KSTR;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto Ks = reinterpret_cast<__nv_bfloat16(*)[KSTR]>(smem);
+  auto Vs = reinterpret_cast<__nv_bfloat16(*)[KSTR]>(smem + SM::kv);
+  int* kps = reinterpret_cast<int*>(smem + 2 * SM::kv);
 
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.z, kvh = blockIdx.y;
-  const int h = kvh * G + warp % G;
+  const int b = blockIdx.z;
+  const int ngrp = G / hpb;
+  const int kvh = blockIdx.y / ngrp, grp = blockIdx.y % ngrp;
+  const int h = kvh * G + grp * hpb + warp % hpb;
   const int blk_row0 = blockIdx.x * rows;
-  const int row0 = blk_row0 + (warp / G) * 16;
+  const int row0 = blk_row0 + (warp / hpb) * 16;
   const int r_lo = row0 + (lane >> 2), r_hi = r_lo + 8;
   const int quad = lane & 3;
   // query positions the block spans (for the exact tile skip)
@@ -89,17 +113,30 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int q_max = q_offset + min(Sq, blk_row0 + rows) - 1;
   const float sl2 = scale * LOG2E;
 
-  // Q fragments of this warp's 16 rows, all of Dh, held in registers
-  uint32_t qa[DH / 16][4];
+  // Q of this warp's 16 rows, all of Dh: fragments in registers, or the
+  // rows in this warp's own slice of shared memory
   const size_t q_row = (size_t)Hq * DH;
   const __nv_bfloat16* qb = q + ((size_t)b * Sq) * q_row + (size_t)h * DH;
+  uint32_t qa[QSMEM ? 1 : DH / 16][4];
+  auto Qs = reinterpret_cast<__nv_bfloat16(*)[KSTR]>(smem + SM::q_off) + warp * 16;
+  if constexpr (QSMEM) {
+    for (int idx = lane; idx < 16 * (DH / 8); idx += 32) {
+      const int r = idx / (DH / 8), c8 = (idx % (DH / 8)) * 8;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (row0 + r < Sq)
+        val = *reinterpret_cast<const uint4*>(qb + (size_t)(row0 + r) * q_row + c8);
+      *reinterpret_cast<uint4*>(&Qs[r][c8]) = val;
+    }
+    __syncwarp();
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const int d = kk * 16 + quad * 2;
-    qa[kk][0] = r_lo < Sq ? ld_pair(qb + r_lo * q_row + d) : 0u;
-    qa[kk][1] = r_hi < Sq ? ld_pair(qb + r_hi * q_row + d) : 0u;
-    qa[kk][2] = r_lo < Sq ? ld_pair(qb + r_lo * q_row + d + 8) : 0u;
-    qa[kk][3] = r_hi < Sq ? ld_pair(qb + r_hi * q_row + d + 8) : 0u;
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int d = kk * 16 + quad * 2;
+      qa[kk][0] = r_lo < Sq ? ld_pair(qb + r_lo * q_row + d) : 0u;
+      qa[kk][1] = r_hi < Sq ? ld_pair(qb + r_hi * q_row + d) : 0u;
+      qa[kk][2] = r_lo < Sq ? ld_pair(qb + r_lo * q_row + d + 8) : 0u;
+      qa[kk][3] = r_hi < Sq ? ld_pair(qb + r_hi * q_row + d + 8) : 0u;
+    }
   }
 
   float o[DH / 8][4];
@@ -144,10 +181,20 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       const int d = kk * 16 + quad * 2;
+      uint32_t qf[4];
+      if constexpr (QSMEM) {
+        const int rl = lane >> 2;
+        qf[0] = ld_pair(&Qs[rl][d]);
+        qf[1] = ld_pair(&Qs[rl + 8][d]);
+        qf[2] = ld_pair(&Qs[rl][d + 8]);
+        qf[3] = ld_pair(&Qs[rl + 8][d + 8]);
+      } else {
+        qf[0] = qa[kk][0]; qf[1] = qa[kk][1]; qf[2] = qa[kk][2]; qf[3] = qa[kk][3];
+      }
 #pragma unroll
       for (int nt = 0; nt < BK / 8; ++nt) {
         const int key = nt * 8 + (lane >> 2);
-        mma_bf16(s[nt], qa[kk], ld_pair(&Ks[key][d]), ld_pair(&Ks[key][d + 8]));
+        mma_bf16(s[nt], qf, ld_pair(&Ks[key][d]), ld_pair(&Ks[key][d + 8]));
       }
     }
 
@@ -236,21 +283,44 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-}  // namespace
-
-// q (B, Sq, Hq, 128), k/v (B, S, Hkv, 128) bf16, kpos (S,) int32 ->
-// out (B, Sq, Hq, 128) bf16.  G = Hq / Hkv must divide 8.
-extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
-                                  const void* kpos, void* out, int B, int Sq,
-                                  int S, int Hq, int Hkv, int q_offset,
-                                  int window, float scale, void* stream) {
+template <int DH, int BK, bool QSMEM>
+int launch(const void* q, const void* k, const void* v, const void* kpos,
+           void* out, int B, int Sq, int S, int Hq, int Hkv, int q_offset,
+           int window, float scale, cudaStream_t stream) {
+  using SM = Smem<DH, BK, QSMEM>;
+  auto kernel = flash_prefill_kernel<DH, BK, QSMEM>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SM::bytes(MAX_WARPS));
+  if (attr != cudaSuccess) return (int)attr;
   const int G = Hq / Hkv;
-  const int rt = G >= 4 ? 1 : 4 / G;  // 16-row tiles per block (4-8 warps)
-  const int rows = 16 * rt;
-  dim3 grid(ceil_div(Sq, rows), Hkv, B);
-  flash_prefill_kernel<<<grid, G * rt * 32, 0, (cudaStream_t)stream>>>(
+  int hpb = 1;  // heads per block: the largest divisor of G up to 8
+  for (int d = 1; d <= MAX_WARPS && d <= G; ++d)
+    if (G % d == 0) hpb = d;
+  const int rt = hpb >= 4 ? 1 : 4 / hpb;  // 16-row tiles per block
+  const int rows = 16 * rt, warps = hpb * rt;
+  dim3 grid(ceil_div(Sq, rows), Hkv * (G / hpb), B);
+  kernel<<<grid, warps * 32, SM::bytes(warps), stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const int*)kpos, (__nv_bfloat16*)out, Sq, S,
-      Hq, Hkv, G, rows, q_offset, window, scale);
+      Hq, Hkv, G, hpb, rows, q_offset, window, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q (B, Sq, Hq, Dh), k/v (B, S, Hkv, Dh) bf16, kpos (S,) int32 ->
+// out (B, Sq, Hq, Dh) bf16.  Dh is 128 or 256; Hq must be a multiple of Hkv.
+extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
+                                  const void* kpos, void* out, int B, int Sq,
+                                  int S, int Hq, int Hkv, int Dh, int q_offset,
+                                  int window, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Dh == 128)
+    return launch<128, 64, false>(q, k, v, kpos, out, B, Sq, S, Hq, Hkv,
+                                  q_offset, window, scale, st);
+  if (Dh == 256)
+    return launch<256, 32, true>(q, k, v, kpos, out, B, Sq, S, Hq, Hkv,
+                                 q_offset, window, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -11,4 +11,5 @@ launches in a plain integer attribute ``launches``.
   flash_decode  — one-token GQA attention over a kpos cache.
   kv_restore    — fused dequant-scatter of one restoration load op.
   kv_quant      — per-channel int8 quantize / dequantize of a KV chunk.
+  rglru_scan    — RG-LRU linear recurrence over time (recurrent layers).
 """

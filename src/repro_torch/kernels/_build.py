@@ -37,10 +37,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, kpos, out, B, Sq, S, Hq, Hkv, q_offset, window, scale, stream
-    "flash_prefill_bf16": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P],
-    # q, k, v, kpos, out, B, S, Hq, Hkv, q_pos, window, scale, stream
-    "flash_decode_bf16": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
+    # q, k, v, kpos, out, B, Sq, S, Hq, Hkv, Dh, q_offset, window, scale,
+    # stream
+    "flash_prefill_bf16": [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P],
+    # q, k, v, kpos, out, B, S, Hq, Hkv, Dh, q_pos, window, scale, stream
+    "flash_decode_bf16": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P],
     # nf, caches*, staged*, scales*, chans*, S, T, t0, slot_lo, n_slots,
     # rows, cs, dtype, stream
     "kv_restore": [_I, _P, _P, _P, _P] + [_I] * 8 + [_P],
@@ -48,6 +49,8 @@ _SIGNATURES = {
     "kv_quantize": [_P] * 4 + [_I] * 3 + [_P],
     # q, scales, out, R, C, dtype, stream
     "kv_dequantize": [_P] * 3 + [_I] * 3 + [_P],
+    # log_a, b, h0, h, h_last, B, S, W, stream
+    "rglru_scan_f32": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -9,6 +9,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+HEAD_DIMS = (128, 256)       # head dims the kernel is built for
 
 
 def flash_decode_plain(q, k, v, kpos, q_pos: int, *, scale: float,
@@ -30,8 +31,8 @@ def flash_decode_plain(q, k, v, kpos, q_pos: int, *, scale: float,
 
 
 def flash_decode(q, k, v, kpos, q_pos: int, *, scale: float, window: int = 0):
-    """The kernel on a CUDA tensor (bf16, Dh 128, Hq/Hkv <= 8), the plain
-    version on a CPU tensor."""
+    """The kernel on a CUDA tensor (bf16, Dh 128 or 256, Hq a multiple of
+    Hkv), the plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kpos, q_pos, scale=scale,
                                   window=window)
@@ -42,14 +43,15 @@ def flash_decode(q, k, v, kpos, q_pos: int, *, scale: float, window: int = 0):
         raise ValueError("flash_decode: the kernel takes bf16 q/k/v")
     if kpos.dtype != torch.int32 or tuple(kpos.shape) != (s,):
         raise ValueError("flash_decode: kpos must be int32 of shape (S,)")
-    if (dh != 128 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh
-            or hq % hkv or hq // hkv > 8):
+    if (dh not in HEAD_DIMS or k.shape != v.shape or k.shape[0] != b
+            or k.shape[3] != dh or hq % hkv):
         raise ValueError(f"flash_decode: unsupported shapes q {tuple(q.shape)}"
-                         f" k {tuple(k.shape)} (Dh 128, Hq/Hkv <= 8)")
+                         f" k {tuple(k.shape)} (Dh 128 or 256, Hq a multiple "
+                         f"of Hkv)")
     out = torch.empty_like(q)
     rc = _build.lib().flash_decode_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
-        out.data_ptr(), b, s, hq, hkv, int(q_pos), int(window), float(scale),
+        out.data_ptr(), b, s, hq, hkv, dh, int(q_pos), int(window), float(scale),
         _build.stream_of(q))
     _build.check_launch("flash_decode", rc)
     flash_decode.launches += 1

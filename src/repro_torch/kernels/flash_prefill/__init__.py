@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+HEAD_DIMS = (128, 256)       # head dims the kernel is built for
 
 
 def flash_prefill_plain(q, k, v, kpos, q_offset: int, *, scale: float,
@@ -37,8 +38,8 @@ def flash_prefill_plain(q, k, v, kpos, q_offset: int, *, scale: float,
 
 def flash_prefill(q, k, v, kpos, q_offset: int, *, scale: float,
                   window: int = 0):
-    """The kernel on a CUDA tensor (bf16, Dh 128, Hq/Hkv dividing 8), the
-    plain version on a CPU tensor."""
+    """The kernel on a CUDA tensor (bf16, Dh 128 or 256, Hq a multiple of
+    Hkv), the plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, kpos, q_offset, scale=scale,
                                    window=window)
@@ -49,14 +50,15 @@ def flash_prefill(q, k, v, kpos, q_offset: int, *, scale: float,
         raise ValueError("flash_prefill: the kernel takes bf16 q/k/v")
     if kpos.dtype != torch.int32 or tuple(kpos.shape) != (s,):
         raise ValueError("flash_prefill: kpos must be int32 of shape (S,)")
-    if (dh != 128 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh
-            or hq % hkv or 8 % (hq // hkv)):
+    if (dh not in HEAD_DIMS or k.shape != v.shape or k.shape[0] != b
+            or k.shape[3] != dh or hq % hkv):
         raise ValueError(f"flash_prefill: unsupported shapes q {tuple(q.shape)}"
-                         f" k {tuple(k.shape)} (Dh 128, Hq/Hkv dividing 8)")
+                         f" k {tuple(k.shape)} (Dh 128 or 256, Hq a multiple "
+                         f"of Hkv)")
     out = torch.empty_like(q)
     rc = _build.lib().flash_prefill_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
-        out.data_ptr(), b, sq, s, hq, hkv, int(q_offset), int(window),
+        out.data_ptr(), b, sq, s, hq, hkv, dh, int(q_offset), int(window),
         float(scale), _build.stream_of(q))
     _build.check_launch("flash_prefill", rc)
     flash_prefill.launches += 1

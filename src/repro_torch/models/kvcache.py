@@ -1,12 +1,15 @@
 """KV-cache dicts of stacked tensors, and the paged block pool.
 
-Counterpart of ``repro.models.kvcache`` for attention caches.  The cache is
-a flat dict of stacked tensors (leading axis = attention layer slot) so the
-restoration executor can slice per-layer, per-token-range views:
+Counterpart of ``repro.models.kvcache`` for attention and RG-LRU caches.
+The cache is a flat dict of stacked tensors (leading axis = layer slot of
+that kind) so the restoration executor can slice per-layer,
+per-token-range views:
 
   k, v : (n_attn, B, S_cache, H_kv, Dh)
   kpos : (n_attn, S_cache) int32   position of each cache slot (-1 = empty;
                                    ring buffer for windowed attention)
+  conv : (n_rec, B, conv_w - 1, W) RG-LRU conv1d tail (compute dtype)
+  lru  : (n_rec, B, W) float32     RG-LRU hidden state
 
 Unlike the reference's immutable arrays, the port updates these tensors in
 place wherever the reference rebuilt a whole stacked array with
@@ -47,15 +50,27 @@ def cache_seq_len(cfg: ModelConfig, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
     kinds = cfg.layer_kinds()
-    if set(kinds) != {"attention"} or cfg.mla is not None:
+    if cfg.mla is not None or "rwkv" in kinds:
         raise NotImplementedError("the port's caches hold dense attention KV "
-                                  "only (MLA/recurrent/RWKV not yet ported)")
-    n_attn = len(kinds)
+                                  "and RG-LRU state only (MLA/RWKV not yet "
+                                  "ported)")
+    n_attn = kinds.count("attention")
+    n_rec = kinds.count("recurrent")
     s = cache_seq_len(cfg, max_len)
-    shape = (n_attn, batch, s, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "kpos": torch.full((n_attn, s), -1, dtype=torch.int32, device=device)}
+    cache: dict = {}
+    if n_attn:
+        shape = (n_attn, batch, s, cfg.num_kv_heads, cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["kpos"] = torch.full((n_attn, s), -1, dtype=torch.int32,
+                                   device=device)
+    if n_rec:
+        w = cfg.rglru.lru_width or cfg.d_model
+        cache["conv"] = torch.zeros((n_rec, batch, cfg.rglru.conv1d_width - 1, w),
+                                    dtype=dtype, device=device)
+        cache["lru"] = torch.zeros((n_rec, batch, w), dtype=torch.float32,
+                                   device=device)
+    return cache
 
 
 def park_cache(cache: dict) -> dict:
@@ -334,7 +349,8 @@ def grow_cache(cfg: ModelConfig, cache: dict, new_len: int) -> dict:
     """Extend the attention KV buffers (k/v/kpos) so the cache holds
     ``new_len`` tokens — how suffix prefill and decode append onto a
     restored prefix cache.  New tensors (zeros, kpos -1) receive a copy of
-    the old contents; windowed archs stay capped at the ring-buffer size."""
+    the old contents; recurrent state fields are length-free and pass
+    through; windowed archs stay capped at the ring-buffer size."""
     target = cache_seq_len(cfg, new_len)
     out = {}
     for f, a in cache.items():

@@ -1,12 +1,13 @@
 """Model builder: config -> functional model with the restoration-chunk,
 suffix-prefill and decode entry points.
 
-Counterpart of ``repro.models.model`` for dense attention stacks.
-Parameters are a plain dict of tensors: ``embed``, ``unembed``,
-``final_norm`` and ``layers`` — a list of per-layer dicts (the reference
-stacks identical layers for ``lax.scan``; PyTorch runs eagerly, so the
-port keeps one dict per layer).  :func:`params_from_jax` converts the
-reference's ``Model.init`` pytree into this layout.
+Counterpart of ``repro.models.model`` for dense attention stacks and the
+RecurrentGemma hybrid (RG-LRU and local-attention layers).  Parameters are
+a plain dict of tensors: ``embed``, ``unembed``, ``final_norm`` and
+``layers`` — a list of per-layer dicts (the reference stacks identical
+layers for ``lax.scan`` and unrolls heterogeneous stacks; PyTorch runs
+eagerly, so the port keeps one dict per layer).  :func:`params_from_jax`
+converts the reference's ``Model.init`` pytree into this layout.
 
 Every entry point runs on the model's device, which defaults to CUDA;
 ``device="cpu"`` must be asked for.  Positions live on the host (see
@@ -38,12 +39,12 @@ def resolve_device(device) -> torch.device:
 class Model:
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.float32,
                  compute_dtype=torch.float32, device="cuda"):
-        if (cfg.mla is not None or cfg.moe is not None or cfg.rglru is not None
+        if (cfg.mla is not None or cfg.moe is not None
                 or cfg.rwkv is not None or cfg.input_mode != "tokens"
                 or cfg.position not in ("rope", "none")):
             raise NotImplementedError(
-                f"{cfg.name}: only dense token-input attention models are "
-                f"ported so far")
+                f"{cfg.name}: only dense and RG-LRU hybrid token-input models "
+                f"are ported so far")
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.compute_dtype = compute_dtype
@@ -66,8 +67,8 @@ class Model:
         if not cfg.tie_embeddings:
             p["unembed"] = embed_init((cfg.d_model, cfg.vocab_size), dt, generator)
         p["final_norm"] = init_norm(cfg.norm, cfg.d_model, dt, self.device)
-        p["layers"] = [tfm.init_layer(cfg, dt, generator)
-                       for _ in range(cfg.num_layers)]
+        p["layers"] = [tfm.init_layer(cfg, i, dt, generator)
+                       for i in range(cfg.num_layers)]
         return p
 
     def num_params(self, params) -> int:
@@ -94,13 +95,22 @@ class Model:
     # Cached-chunk forward (decode C=1; restoration chunks C>1)
     # ------------------------------------------------------------------
     def _layer_cached(self, p, kind, slot, x, positions, cache):
-        # views of this layer's slot: the attention writes the chunk's KV
-        # straight into the stacked cache (the reference's .at[slot].set
-        # of the whole stacked array)
-        view = {"k": cache["k"][slot], "v": cache["v"][slot],
-                "kpos": cache["kpos"][slot]}
-        x, _ = tfm.attention_layer_cached(self.cfg, p, x, positions, view)
-        return x, cache
+        # both kinds write this layer's slot of the stacked cache in place
+        # (the reference's .at[slot].set of the whole stacked array); the
+        # attention writes the chunk's KV through views of the slot
+        if kind == "attention":
+            view = {"k": cache["k"][slot], "v": cache["v"][slot],
+                    "kpos": cache["kpos"][slot]}
+            x, _ = tfm.attention_layer_cached(self.cfg, p, x, positions, view)
+            return x, cache
+        if kind == "recurrent":
+            x, conv, h = tfm.recurrent_layer_full(self.cfg, p, x,
+                                                  cache["conv"][slot],
+                                                  cache["lru"][slot])
+            cache["conv"][slot] = conv
+            cache["lru"][slot] = h
+            return x, cache
+        raise ValueError(kind)
 
     def layer_chunk(self, params, i: int, x, positions, cache):
         """One layer over a chunk, attending to + updating the cache."""
@@ -163,15 +173,20 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype if t.is_floating_point() else t.dtype)
 
 
+# float leaves the reference keeps in f32 whatever the parameter dtype
+F32_LEAVES = ("lam",)
+
+
 def params_from_jax(tree: dict, *, dtype=torch.float32, device="cuda") -> dict:
     """The reference ``Model.init`` pytree (as numpy arrays: ``prefix_layers``
-    list + stacked ``scan_layers``) -> the port's parameter dict."""
+    list + stacked ``scan_layers``; a hybrid has every layer in
+    ``prefix_layers``) -> the port's parameter dict."""
     dev = resolve_device(device)
 
-    def conv(node):
+    def conv(node, key=None):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _tensor(node, dtype, dev)
+            return {k: conv(v, k) for k, v in node.items()}
+        return _tensor(node, torch.float32 if key in F32_LEAVES else dtype, dev)
 
     out = {k: conv(v) for k, v in tree.items()
            if k not in ("prefix_layers", "scan_layers")}

@@ -1,8 +1,9 @@
 """Per-layer blocks (pre-norm residual) shared by the stack in ``model.py``.
 
-Counterpart of ``repro.models.transformer``, the cached-chunk entry point
-of dense attention layers: restoration recompute steps and single-token
-decode are the same path with C = chunk or C = 1.
+Counterpart of ``repro.models.transformer`` for dense attention and RG-LRU
+layers.  Restoration recompute steps and single-token decode are the same
+path with C = chunk or C = 1; a recurrent layer carries its state (conv
+tail, h) from one chunk to the next.
 """
 from __future__ import annotations
 
@@ -10,16 +11,24 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 
-def init_layer(cfg: ModelConfig, dtype, generator: torch.Generator) -> dict:
+def init_layer(cfg: ModelConfig, layer_idx: int, dtype,
+               generator: torch.Generator) -> dict:
+    kind = cfg.layer_kinds()[layer_idx]
     dev = generator.device
-    return {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev),
-            "norm2": init_norm(cfg.norm, cfg.d_model, dtype, dev),
-            "attn": attn.init_attention(cfg, dtype, generator),
-            "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
-                            generator)}
+    p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev),
+         "norm2": init_norm(cfg.norm, cfg.d_model, dtype, dev)}
+    if kind == "attention":
+        p["attn"] = attn.init_attention(cfg, dtype, generator)
+    elif kind == "recurrent":
+        p["rglru"] = rglru_mod.init_rglru_block(cfg, dtype, generator)
+    else:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+    p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.activation, dtype, generator)
+    return p
 
 
 def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -37,3 +46,13 @@ def attention_layer_cached(cfg: ModelConfig, p: dict, x, positions,
     x = x + a
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
     return x + _ffn(cfg, p, h), {"k": k, "v": v, "kpos": kpos}
+
+
+def recurrent_layer_full(cfg: ModelConfig, p: dict, x, conv_tail, h0):
+    """RG-LRU layer over a chunk from state (conv_tail, h0).  Returns
+    (x', conv_tail', h_last)."""
+    h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    r, conv_tail, h_last = rglru_mod.rglru_full(cfg, p["rglru"], h, conv_tail, h0)
+    x = x + r
+    h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+    return x + _ffn(cfg, p, h), conv_tail, h_last

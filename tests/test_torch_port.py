@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_decode import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_prefill import flash_prefill  # noqa: E402
 from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize  # noqa: E402
 from repro_torch.kernels.kv_restore import kv_restore_scatter  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.models import Model, params_from_jax  # noqa: E402
 from repro_torch.serving import ChunkStore, RealServingEngine  # noqa: E402
 
@@ -85,7 +86,7 @@ def _attention_inputs(dev="cpu"):
 
 
 @pytest.mark.parametrize("kernel", ["flash_prefill", "flash_decode", "kv_restore",
-                                    "kv_quantize", "kv_dequantize"])
+                                    "kv_quantize", "kv_dequantize", "rglru_scan"])
 def test_wrappers_plain_on_cpu_only(kernel):
     """CPU tensors take the plain version and count no launch; a tensor on
     any other non-CUDA device is refused, not silently computed."""
@@ -100,11 +101,13 @@ def test_wrappers_plain_on_cpu_only(kernel):
                                       t0=0, chunk_size=8)
         if kernel == "kv_quantize":
             return kv_quantize(k)
+        if kernel == "rglru_scan":
+            return rglru_scan(q[:, :, 0], q[:, :, 1], q[:, 0, 2])
         return kv_dequantize(k.to(torch.int8), torch.ones(32, device=dev))
 
     wrappers = {"flash_prefill": flash_prefill, "flash_decode": flash_decode,
                 "kv_restore": kv_restore_scatter, "kv_quantize": kv_quantize,
-                "kv_dequantize": kv_dequantize}
+                "kv_dequantize": kv_dequantize, "rglru_scan": rglru_scan}
     before = wrappers[kernel].launches
     call("cpu")
     assert wrappers[kernel].launches == before
@@ -116,4 +119,5 @@ def test_wrappers_plain_on_cpu_only(kernel):
 def test_import_builds_nothing():
     assert _build._lib is None
     assert _build.CSRC.is_dir() and sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "flash_decode.cu", "flash_prefill.cu", "kv_quant.cu", "kv_restore.cu"]
+        "flash_decode.cu", "flash_prefill.cu", "kv_quant.cu", "kv_restore.cu",
+        "rglru_scan.cu"]
