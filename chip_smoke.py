@@ -3,22 +3,25 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py                   # build + kernel phase + serve phase
+    python3 chip_smoke.py                   # build + kernel phase + serve phases
     python3 chip_smoke.py --kernels-only    # build + kernel phase only
     python3 chip_smoke.py --profile         # also trace one serve of each model
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the shapes
-of the port's two paths (qwen3-8b: Hq 32, Hkv 8, Dh 128, bf16;
+of the port's three paths (qwen3-8b: Hq 32, Hkv 8, Dh 128, bf16;
 recurrentgemma-2b: Hq 10, Hkv 1, Dh 256 over a 2048-slot ring with a
-window, and the RG-LRU scan over width 2560 in f32), then serves four
-requests through ``RealServingEngine`` on each model at full width and
-depth with random bf16 weights — qwen3-8b with CacheFlow two-pointer
-restoration from an int8 chunk store, recurrentgemma-2b with restoration of
-attention KV and RG-LRU state — with suffix prefill, greedy decode and
-every restored cache verified, and checks that each kernel of a path
-launched during that path's serve.  The second-to-last line of stdout is a
-``{"kernels": [...]}`` summary; the last line is the ok/device record.
+window, and the RG-LRU scan over width 2560 in f32; rwkv6-7b: the wkv
+recurrence over 64 heads of 64 in f32), then serves four requests through
+``RealServingEngine`` on each model at full width and depth with random
+bf16 weights — qwen3-8b with CacheFlow two-pointer restoration from an int8
+chunk store, recurrentgemma-2b with restoration of attention KV and RG-LRU
+state, rwkv6-7b with layer-wise restoration of its wkv and token-shift
+state — with suffix prefill, greedy decode and every restored cache
+verified, and checks that each kernel of a path launched during that
+path's serve (and that only ``wkv6`` launched during the RWKV serve).  The
+second-to-last line of stdout is a ``{"kernels": [...]}`` summary; the
+last line is the ok/device record.
 Any failure raises (exit code != 0).  Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -47,6 +50,13 @@ DECODE_TOL = 1e-3
 # rglru_scan repeats its plain version's IEEE arithmetic step by step (expf,
 # a multiply, then an add, all in f32), so it is held to equality.
 RGLRU_TOL = 0.0
+# wkv6: max |kernel - plain| / max |plain|.  The state update repeats the
+# plain version's IEEE arithmetic (a product, a product, a sum), so s_last
+# is held to equality; y sums its 64-term dot products in another order.
+# Measured on an H100 (PERF.md): y within 1.6e-7 of max |y| at every S;
+# the bound is about three times that.
+WKV6_Y_TOL = 5e-7
+WKV6_S_TOL = 0.0
 
 
 def card_line() -> str:
@@ -251,13 +261,17 @@ def kernel_phase(dev, card: str) -> dict:
         shape=f"q (36,1,{cs},{hkv},{dh}) int8 -> bf16")
 
     hybrid_kernel_cases(dev, g, flush, res)
+    rwkv_kernel_cases(dev, g, flush, res)
 
     for name, r in res.items():
         line = {("max_err" if k == "max_abs_err" else "kernel_ms" if k == "ms" else k): v
                 for k, v in r.items()}
         print(json.dumps({"kernel_check": name, "card": card, **line}))
+    # each entry's checked error is relative where it names one
     bad = [n for n, r in res.items()
-           if not r["max_abs_err"] <= r["tol"] or r.get("bit_exact") is False]
+           if not r.get("max_rel_err", r["max_abs_err"]) <= r["tol"]
+           or r.get("bit_exact") is False or r.get("invariant_512") is False
+           or not r.get("s_last_max_rel_err", 0.0) <= r.get("s_last_tol", 0.0)]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return res
@@ -401,6 +415,66 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
         shape=f"log_a, b (1,256,{w}) f32, h0 (1,{w}) f32")
 
 
+def rwkv_kernel_cases(dev, g, flush, res: dict):
+    """rwkv6-7b's wkv recurrence, 64 heads of 64 in f32, at every S of its
+    serve: 256 (a restoration chunk, timed), 4096 (layer-wise recompute of
+    the longest prefix, timed), 64 (suffix prefill), 1 (decode, timed); s0
+    != 0 and w drawn as the model's decay, exp(-exp(.)) of normal inputs.
+    Then the invariance layer-wise restoration relies on: one call over 512
+    steps equals two chained calls over 256, bit for bit."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_plain
+
+    h, dh = 64, 64
+
+    def inputs(sl):
+        r, k, v = (torch.randn(1, sl, h, dh, generator=g, device=dev) for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn(1, sl, h, dh, generator=g, device=dev)))
+        return r, k, v, w, torch.randn(1, h, dh, dh, generator=g, device=dev)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    u = 0.1 * torch.randn(h, dh, generator=g, device=dev)
+    cases, timed = [], {}
+    for sl in (256, 4096, 64, 1):
+        r, k, v, w, s0 = inputs(sl)
+        y, last = wkv6(r, k, v, w, u, s0)
+        yp, lastp = wkv6_plain(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        cases.append(dict(S=sl, y_rel_err=rel(y, yp), s_last_rel_err=rel(last, lastp),
+                          max_abs_err=max(float((y - yp).abs().max()),
+                                          float((last - lastp).abs().max())),
+                          max_abs_y=float(yp.abs().max()),
+                          max_abs_s_last=float(lastp.abs().max()),
+                          s_last_bit_exact=torch.equal(last, lastp)))
+        if sl != 64:
+            # five operations per state element per step (y: a product and a
+            # sum; S: two products and a sum) and four per row of the bonus
+            bms, by = bound(nbytes(r, k, v, w, u, s0, y, last),
+                            (5 * dh + 4) * sl * h * dh, F32_FLOP_PER_S)
+            timed[sl] = dict(
+                ms=time_ms(lambda: wkv6(r, k, v, w, u, s0), flush=flush),
+                plain_ms=time_ms(lambda: wkv6_plain(r, k, v, w, u, s0), flush=flush,
+                                 iters=3 if sl > 256 else 7),
+                bound_ms=bms, bound_by=by)
+    r, k, v, w, s0 = inputs(512)
+    y, last = wkv6(r, k, v, w, u, s0)
+    halves = [t[:, :256].contiguous() for t in (r, k, v, w)]
+    y1, mid = wkv6(*halves, u, s0)
+    halves = [t[:, 256:].contiguous() for t in (r, k, v, w)]
+    y2, last2 = wkv6(*halves, u, mid)
+    torch.cuda.synchronize()
+    invariant = torch.equal(y, torch.cat([y1, y2], dim=1)) and torch.equal(last, last2)
+    res["wkv6"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        max_rel_err=max(c["y_rel_err"] for c in cases), tol=WKV6_Y_TOL,
+        s_last_max_rel_err=max(c["s_last_rel_err"] for c in cases),
+        s_last_tol=WKV6_S_TOL, invariant_512=invariant,
+        cases=cases, **timed[256], library_ms=None, s4096=timed[4096], s1=timed[1],
+        shape=f"r, k, v, w (1,256,{h},{dh}) f32, u ({h},{dh}), s0 (1,{h},{dh},{dh})")
+
+
 # ---------------------------------------------------------------------------
 # Serve phase: the port's main path at full width
 # ---------------------------------------------------------------------------
@@ -412,6 +486,8 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
 QWEN3_KERNELS = ("flash_prefill", "flash_decode", "kv_restore", "kv_quantize",
                  "kv_dequantize")
 HYBRID_KERNELS = ("rglru_scan", "flash_prefill", "flash_decode")
+# rwkv6-7b is attention-free and takes no chunk store: only wkv6 may launch
+RWKV_KERNELS = ("wkv6",)
 
 
 def counters():
@@ -420,9 +496,10 @@ def counters():
     from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize
     from repro_torch.kernels.kv_restore import kv_restore_scatter
     from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_scan import wkv6
     return {"flash_prefill": flash_prefill, "flash_decode": flash_decode,
             "kv_restore": kv_restore_scatter, "kv_quantize": kv_quantize,
-            "kv_dequantize": kv_dequantize, "rglru_scan": rglru_scan}
+            "kv_dequantize": kv_dequantize, "rglru_scan": rglru_scan, "wkv6": wkv6}
 
 
 def zero_counters():
@@ -621,6 +698,124 @@ def hybrid_serve_phase(dev, card: str, profile: bool = False) -> dict:
     return result
 
 
+def row_invariance(model, params, dev, m: int = 512, c: int = 256) -> dict:
+    """Which op of an RWKV layer gives other rows at M = m than at M = c:
+    for each product (and norm) of layer 0, on the same random bf16 input,
+    max |op(a)[:c] - op(a[:c])|.  Nonzero means the library picked another
+    kernel (another summation order) for the other row count — what
+    layer-wise recompute over the whole prefix would not repeat of
+    ``remember``'s chunks."""
+    import torch
+    from repro_torch.models.layers import apply_norm
+
+    p = params["layers"][0]["rwkv"]
+    cfg = model.cfg
+    g = torch.Generator(device=dev).manual_seed(2)
+    rank = cfg.rwkv.tokenshift_lora_rank
+    bf = torch.bfloat16
+    def shape(name):
+        return "x".join(map(str, p[name].shape))
+
+    ops = {
+        f"mix_w1 {shape('mix_w1')}": (cfg.d_model, bf, lambda a: a @ p["mix_w1"]),
+        f"einsum mix_w2 {shape('mix_w2')}": (5 * rank, bf, lambda a: torch.einsum(
+            "...nr,nrd->...nd", a.reshape(1, -1, 5, rank), p["mix_w2"])),
+        f"w_r {shape('w_r')}": (cfg.d_model, bf, lambda a: a @ p["w_r"]),
+        f"decay_w1 {shape('decay_w1')}": (cfg.d_model, bf, lambda a: a @ p["decay_w1"]),
+        f"f32 decay_w2 {shape('decay_w2')}": (cfg.rwkv.decay_lora_rank, torch.float32,
+                                             lambda a: a @ p["decay_w2"].float()),
+        f"cm_k {shape('cm_k')}": (cfg.d_model, bf, lambda a: a @ p["cm_k"]),
+        f"cm_v {shape('cm_v')}": (cfg.d_ff, bf, lambda a: a @ p["cm_v"]),
+        "layernorm": (cfg.d_model, bf, lambda a: apply_norm(
+            cfg.norm, params["layers"][0]["norm1"], a, cfg.norm_eps)),
+    }
+    out = {}
+    for name, (width, dt, fn) in ops.items():
+        a = torch.randn(1, m, width, generator=g, device=dev).to(dt)
+        out[name] = float((fn(a)[:, :c].float() - fn(a[:, :c]).float()).abs().max())
+    return out
+
+
+def rwkv_serve_phase(dev, card: str, profile: bool = False) -> dict:
+    """The port's third path: rwkv6-7b at full width and depth (32 RWKV-6
+    layers, d_model 4096, 64 wkv heads of 64, d_ff 14336) with random bf16
+    weights, four requests, verify on.  Attention-free: every plan is
+    layer-wise (the compute pointer recomputes whole layers over the prefix,
+    the I/O pointer applies a layer's end-of-prefix state snapshot), and the
+    restored state is each layer's wkv matrix and two token shifts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import RealServingEngine, Request
+
+    cfg = get_config("rwkv6-7b")
+    t0 = time.perf_counter()
+    model = Model(cfg, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                  device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rows = row_invariance(model, params, dev)
+    print(json.dumps({"rwkv_row_invariance_512_vs_256": rows}))
+
+    def serve():
+        eng = RealServingEngine(model, params, system="cacheflow", stages=2,
+                                chunk_size=256, l_delta=1024, max_batch=2,
+                                kvstore=None, device=dev, seed=0)
+        reqs = [Request(f"r{n}", 0.0, n, 64, decode_len=16)
+                for n in (512, 1024, 2048, 4096)]
+        t0 = time.perf_counter()
+        rep = eng.serve(reqs, verify=True)
+        torch.cuda.synchronize()
+        return eng, reqs, rep, time.perf_counter() - t0
+
+    # this path: every launch counter from 0 just before, read just after
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, rep, serve_s = serve()
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if profile:
+        print(json.dumps({"rwkv_profile": profile_serve(serve)}))
+
+    ex = eng.executor
+    plans = {r.request_id: sorted({p.strategy for p in
+                                   ex._live[r.request_id]["plans"].values()})
+             for r in reqs}
+    out, bad = {}, []
+    for r in reqs:
+        o = ex.outputs(r.request_id)
+        logits = o["first_logits"].float()
+        errs = ex.verify_errs.get(r.request_id, {})
+        if (tuple(logits.shape) != (1, cfg.vocab_size)
+                or not bool(torch.isfinite(logits).all())
+                or len(o["tokens"]) != r.decode_len
+                or set(errs) != {"wkv", "shift_tm", "shift_cm"}):
+            bad.append(r.request_id)
+        out[r.request_id] = dict(strategies=plans[r.request_id], verify_max_err=errs,
+                                 n_tokens=len(o["tokens"]), tokens=o["tokens"][:6])
+    result = dict(
+        card=card, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        params=model.num_params(params), init_s=init_s, serve_s=serve_s,
+        peak_mem_gb=peak_gb, stats=rep.stats, compute_busy=rep.compute_busy,
+        io_busy=rep.io_busy, decode_busy=rep.decode_busy,
+        overlap_decode_restore=rep.overlap_decode_restore, ttfts=rep.ttfts,
+        restore_secs=rep.restore_secs, row_invariance=rows, requests=out,
+        launches=launches)
+    print(json.dumps({"rwkv_serve": result}, default=str))
+    if bad:
+        raise AssertionError(f"bad outputs (logits shape/finite, token count, "
+                             f"verified fields): {bad}")
+    missing = [n for n in RWKV_KERNELS if launches[n] == 0]
+    stray = [n for n, c in launches.items() if c and n not in RWKV_KERNELS]
+    if missing or stray:
+        raise AssertionError(f"RWKV serve: kernels not launched {missing}, "
+                             f"launched off its path {stray}")
+    if any(s != ["layer"] for s in plans.values()):
+        raise AssertionError(f"expected layer-wise plans only: {plans}")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -653,14 +848,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kres = kernel_phase(dev, card)
     print(json.dumps({"kernel_phase_s": time.perf_counter() - t0}))
-    sres = hres = None
+    sres = hres = rres = None
     if not args.kernels_only:
         sres = serve_phase(dev, card, args.profile)
         # the engine and executor hold each other: collect the cycle so the
-        # next path's peak memory does not count qwen3-8b's leftovers
+        # next path's peak memory does not count the last path's leftovers
         gc.collect()
         torch.cuda.empty_cache()
         hres = hybrid_serve_phase(dev, card, args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rres = rwkv_serve_phase(dev, card, args.profile)
 
     # (kernel-phase entry, source, TPU kernel, the serve whose shapes it has)
     fp = ("src/repro_torch/csrc/flash_prefill.cu",
@@ -676,7 +874,9 @@ def main(argv=None) -> int:
               "src/repro/kernels/kv_quant/kernel.py:84", sres),
              ("flash_prefill_dh256", *fp, hres), ("flash_decode_dh256", *fd, hres),
              ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
-              "src/repro/kernels/rglru_scan/kernel.py:49", hres)]
+              "src/repro/kernels/rglru_scan/kernel.py:49", hres),
+             ("wkv6", "src/repro_torch/csrc/wkv6.cu",
+              "src/repro/kernels/rwkv6_scan/kernel.py:56", rres)]
     rows = []
     for name, src, replaces, served in table:
         k = kres[name]

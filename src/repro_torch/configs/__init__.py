@@ -13,6 +13,7 @@ from repro_torch.config import ModelConfig
 _REGISTRY = {
     "qwen3-8b": "qwen3_8b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 ALL_ARCHS = tuple(_REGISTRY)

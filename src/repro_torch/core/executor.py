@@ -270,9 +270,19 @@ class RestorationExecutor:
                 assert op.unit == 0, key
                 acts[key] = self._stage_input(op.request_id, op.stage,
                                               0, plan.n_tokens)
-            x = acts[key]
-            for i in range(lo, hi):
-                x, cache = m.layer_chunk(self.params, i, x, pos, cache)
+            # the unit's layers run over the prefix in remember's chunks
+            # (the reference takes the whole prefix in one pass): a GEMM
+            # library may pick another kernel, and another summation order,
+            # for another row count, and verify needs remember's arithmetic
+            outs = []
+            for c0 in range(t0, t1, self.chunk_size):
+                c1 = min(t1, c0 + self.chunk_size)
+                x = acts[key][:, c0 - t0:c1 - t0]
+                for i in range(lo, hi):
+                    x, cache = m.layer_chunk(self.params, i, x,
+                                             _positions(c0, c1), cache)
+                outs.append(x)
+            x = torch.cat(outs, dim=1)
             acts[(op.stage, op.unit + 1)] = x
             acts.pop((op.stage, op.unit - 1), None)
         live["cache"] = cache

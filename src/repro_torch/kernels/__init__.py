@@ -12,4 +12,5 @@ launches in a plain integer attribute ``launches``.
   kv_restore    — fused dequant-scatter of one restoration load op.
   kv_quant      — per-channel int8 quantize / dequantize of a KV chunk.
   rglru_scan    — RG-LRU linear recurrence over time (recurrent layers).
+  rwkv6_scan    — RWKV-6 wkv recurrence with a matrix state (rwkv layers).
 """

@@ -1,6 +1,7 @@
 """KV-cache dicts of stacked tensors, and the paged block pool.
 
-Counterpart of ``repro.models.kvcache`` for attention and RG-LRU caches.
+Counterpart of ``repro.models.kvcache`` for attention, RG-LRU and RWKV-6
+caches.
 The cache is a flat dict of stacked tensors (leading axis = layer slot of
 that kind) so the restoration executor can slice per-layer,
 per-token-range views:
@@ -10,6 +11,8 @@ per-token-range views:
                                    ring buffer for windowed attention)
   conv : (n_rec, B, conv_w - 1, W) RG-LRU conv1d tail (compute dtype)
   lru  : (n_rec, B, W) float32     RG-LRU hidden state
+  wkv  : (n_rwkv, B, H, Dh, Dh) float32   RWKV-6 wkv state per head
+  shift_tm, shift_cm : (n_rwkv, B, D)     RWKV-6 token shifts (compute dtype)
 
 Unlike the reference's immutable arrays, the port updates these tensors in
 place wherever the reference rebuilt a whole stacked array with
@@ -50,12 +53,13 @@ def cache_seq_len(cfg: ModelConfig, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
     kinds = cfg.layer_kinds()
-    if cfg.mla is not None or "rwkv" in kinds:
-        raise NotImplementedError("the port's caches hold dense attention KV "
-                                  "and RG-LRU state only (MLA/RWKV not yet "
+    if cfg.mla is not None:
+        raise NotImplementedError("the port's caches hold dense attention KV, "
+                                  "RG-LRU and RWKV-6 state only (MLA not yet "
                                   "ported)")
     n_attn = kinds.count("attention")
     n_rec = kinds.count("recurrent")
+    n_rwkv = kinds.count("rwkv")
     s = cache_seq_len(cfg, max_len)
     cache: dict = {}
     if n_attn:
@@ -70,6 +74,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dic
                                     dtype=dtype, device=device)
         cache["lru"] = torch.zeros((n_rec, batch, w), dtype=torch.float32,
                                    device=device)
+    if n_rwkv:
+        hs = cfg.rwkv.head_size
+        cache["wkv"] = torch.zeros((n_rwkv, batch, cfg.d_model // hs, hs, hs),
+                                   dtype=torch.float32, device=device)
+        cache["shift_tm"] = torch.zeros((n_rwkv, batch, cfg.d_model), dtype=dtype,
+                                        device=device)
+        cache["shift_cm"] = torch.zeros((n_rwkv, batch, cfg.d_model), dtype=dtype,
+                                        device=device)
     return cache
 
 

@@ -1,8 +1,9 @@
 """Model builder: config -> functional model with the restoration-chunk,
 suffix-prefill and decode entry points.
 
-Counterpart of ``repro.models.model`` for dense attention stacks and the
-RecurrentGemma hybrid (RG-LRU and local-attention layers).  Parameters are
+Counterpart of ``repro.models.model`` for dense attention stacks, the
+RecurrentGemma hybrid (RG-LRU and local-attention layers) and RWKV-6
+stacks.  Parameters are
 a plain dict of tensors: ``embed``, ``unembed``, ``final_norm`` and
 ``layers`` — a list of per-layer dicts (the reference stacks identical
 layers for ``lax.scan`` and unrolls heterogeneous stacks; PyTorch runs
@@ -40,11 +41,11 @@ class Model:
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.float32,
                  compute_dtype=torch.float32, device="cuda"):
         if (cfg.mla is not None or cfg.moe is not None
-                or cfg.rwkv is not None or cfg.input_mode != "tokens"
+                or cfg.input_mode != "tokens"
                 or cfg.position not in ("rope", "none")):
             raise NotImplementedError(
-                f"{cfg.name}: only dense and RG-LRU hybrid token-input models "
-                f"are ported so far")
+                f"{cfg.name}: only dense, RG-LRU hybrid and RWKV-6 token-input "
+                f"models are ported so far")
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.compute_dtype = compute_dtype
@@ -95,7 +96,7 @@ class Model:
     # Cached-chunk forward (decode C=1; restoration chunks C>1)
     # ------------------------------------------------------------------
     def _layer_cached(self, p, kind, slot, x, positions, cache):
-        # both kinds write this layer's slot of the stacked cache in place
+        # every kind writes this layer's slot of the stacked cache in place
         # (the reference's .at[slot].set of the whole stacked array); the
         # attention writes the chunk's KV through views of the slot
         if kind == "attention":
@@ -109,6 +110,15 @@ class Model:
                                                   cache["lru"][slot])
             cache["conv"][slot] = conv
             cache["lru"][slot] = h
+            return x, cache
+        if kind == "rwkv":
+            x, stm, scm, wkv = tfm.rwkv_layer_full(self.cfg, p, x,
+                                                   cache["shift_tm"][slot],
+                                                   cache["shift_cm"][slot],
+                                                   cache["wkv"][slot])
+            cache["shift_tm"][slot] = stm
+            cache["shift_cm"][slot] = scm
+            cache["wkv"][slot] = wkv
             return x, cache
         raise ValueError(kind)
 
@@ -174,7 +184,7 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 
 # float leaves the reference keeps in f32 whatever the parameter dtype
-F32_LEAVES = ("lam",)
+F32_LEAVES = ("lam", "decay_base", "bonus_u", "mix_base", "cm_mix_k", "cm_mix_r")
 
 
 def params_from_jax(tree: dict, *, dtype=torch.float32, device="cuda") -> dict:

@@ -1,9 +1,10 @@
 """Per-layer blocks (pre-norm residual) shared by the stack in ``model.py``.
 
-Counterpart of ``repro.models.transformer`` for dense attention and RG-LRU
-layers.  Restoration recompute steps and single-token decode are the same
-path with C = chunk or C = 1; a recurrent layer carries its state (conv
-tail, h) from one chunk to the next.
+Counterpart of ``repro.models.transformer`` for dense attention, RG-LRU
+and RWKV-6 layers.  Restoration recompute steps and single-token decode
+are the same path with C = chunk or C = 1; a recurrent layer carries its
+state (conv tail, h) from one chunk to the next, an RWKV layer its token
+shifts and wkv matrix.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 
@@ -25,6 +27,9 @@ def init_layer(cfg: ModelConfig, layer_idx: int, dtype,
         p["attn"] = attn.init_attention(cfg, dtype, generator)
     elif kind == "recurrent":
         p["rglru"] = rglru_mod.init_rglru_block(cfg, dtype, generator)
+    elif kind == "rwkv":
+        p["rwkv"] = rwkv_mod.init_rwkv_block(cfg, dtype, generator)
+        return p  # rwkv blocks have no separate MLP (channel mix is inside)
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.activation, dtype, generator)
@@ -56,3 +61,14 @@ def recurrent_layer_full(cfg: ModelConfig, p: dict, x, conv_tail, h0):
     x = x + r
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
     return x + _ffn(cfg, p, h), conv_tail, h_last
+
+
+def rwkv_layer_full(cfg: ModelConfig, p: dict, x, shift_tm, shift_cm, wkv):
+    """RWKV-6 layer over a chunk from state (token shifts, wkv).  Returns
+    (x', shift_tm', shift_cm', wkv')."""
+    h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    t, shift_tm, wkv = rwkv_mod.time_mix(cfg, p["rwkv"], h, shift_tm, wkv)
+    x = x + t
+    h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+    c, shift_cm = rwkv_mod.channel_mix(cfg, p["rwkv"], h, shift_cm)
+    return x + c, shift_tm, shift_cm, wkv

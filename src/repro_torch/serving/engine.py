@@ -182,9 +182,12 @@ class RealServingEngine:
 
     def _make_plans(self, r: Request, bounds):
         cfg = self.model.cfg
+        # attention-free models restore layer-wise only: no token pointers
+        # (DESIGN §5), so no prefix length reaches l_delta's token-wise plans
+        l_delta = 10**9 if cfg.rwkv is not None else self.l_delta
         return make_baseline_plans(
             self.system, r.request_id, r.prefix_len,
-            chunk_size=self.chunk_size, l_delta=self.l_delta,
+            chunk_size=self.chunk_size, l_delta=l_delta,
             num_layers=cfg.num_layers, stage_bounds=bounds)
 
     def serve(self, requests: List[Request], *, verify: bool = True,

@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_prefill import flash_prefill  # noqa: E402
 from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize  # noqa: E402
 from repro_torch.kernels.kv_restore import kv_restore_scatter  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import wkv6  # noqa: E402
 from repro_torch.models import Model, params_from_jax  # noqa: E402
 from repro_torch.serving import ChunkStore, RealServingEngine  # noqa: E402
 
@@ -86,7 +87,8 @@ def _attention_inputs(dev="cpu"):
 
 
 @pytest.mark.parametrize("kernel", ["flash_prefill", "flash_decode", "kv_restore",
-                                    "kv_quantize", "kv_dequantize", "rglru_scan"])
+                                    "kv_quantize", "kv_dequantize", "rglru_scan",
+                                    "wkv6"])
 def test_wrappers_plain_on_cpu_only(kernel):
     """CPU tensors take the plain version and count no launch; a tensor on
     any other non-CUDA device is refused, not silently computed."""
@@ -103,11 +105,16 @@ def test_wrappers_plain_on_cpu_only(kernel):
             return kv_quantize(k)
         if kernel == "rglru_scan":
             return rglru_scan(q[:, :, 0], q[:, :, 1], q[:, 0, 2])
+        if kernel == "wkv6":
+            r = q[..., :2, :]                     # (1, 3, 2, 32)
+            s0 = torch.zeros(1, 2, 32, 32, device=dev)
+            return wkv6(r, r, r, torch.sigmoid(r), q[0, 0, :2], s0)
         return kv_dequantize(k.to(torch.int8), torch.ones(32, device=dev))
 
     wrappers = {"flash_prefill": flash_prefill, "flash_decode": flash_decode,
                 "kv_restore": kv_restore_scatter, "kv_quantize": kv_quantize,
-                "kv_dequantize": kv_dequantize, "rglru_scan": rglru_scan}
+                "kv_dequantize": kv_dequantize, "rglru_scan": rglru_scan,
+                "wkv6": wkv6}
     before = wrappers[kernel].launches
     call("cpu")
     assert wrappers[kernel].launches == before
@@ -120,4 +127,4 @@ def test_import_builds_nothing():
     assert _build._lib is None
     assert _build.CSRC.is_dir() and sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
         "flash_decode.cu", "flash_prefill.cu", "kv_quant.cu", "kv_restore.cu",
-        "rglru_scan.cu"]
+        "rglru_scan.cu", "wkv6.cu"]
