@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py                   # build + kernel phase + serve phases
     python3 chip_smoke.py --kernels-only    # build + kernel phase only
     python3 chip_smoke.py --profile         # also trace one serve of each model
+    python3 chip_smoke.py --decode-sweep    # kernel phase + flash_decode over S, B
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the shapes
@@ -41,10 +42,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 # Largest |kernel - plain| the attention checks accept.  Outputs of the N(0,1)
-# inputs reach 0.1-0.3.  Measured on an H100 (PERF.md): prefill differs by at
+# inputs reach 0.1-0.6.  Measured on an H100 (PERF.md): prefill differs by at
 # most 1.95e-3, one bf16 step at its largest output 0.27 (the plain version
-# rounds scores to bf16, the kernel keeps them in f32); decode, f32 in both,
-# by at most 1.2e-4.  The bounds are about twice and eight times that.
+# rounds scores to bf16, the kernel keeps them in f32); decode, f32 in both
+# but summed in another order over the splits of the cache, by at most
+# 2.44e-4, one bf16 step of an output near 0.05.  The bounds are about twice
+# and four times that.
 PREFILL_TOL = 4e-3
 DECODE_TOL = 1e-3
 # rglru_scan repeats its plain version's IEEE arithmetic step by step (expf,
@@ -75,7 +78,9 @@ def time_ms(fn, *, iters: int = 21, flush=None):
     """Median device time of ``fn`` over ``iters`` launches, CUDA events
     around each launch; ``flush`` (run outside the timed window) evicts L2
     first so the kernel finds its inputs in device memory, as the serving
-    path does."""
+    path does.  A 1 ms spin on the device before the first event keeps it
+    busy until the host has enqueued the whole call, so the window holds
+    device time only, not the host's time to launch."""
     import statistics
 
     import torch
@@ -86,6 +91,7 @@ def time_ms(fn, *, iters: int = 21, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush()
+        torch.cuda._sleep(2_000_000)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -93,6 +99,31 @@ def time_ms(fn, *, iters: int = 21, flush=None):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernels_us(fn, flush=None, iters: int = 5) -> dict:
+    """Device time per call of each kernel ``fn`` launches (torch.profiler),
+    after ``flush`` as in ``time_ms`` or, without one, with the inputs warm
+    in L2 from the call before."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if "flash_decode" in e.key and us:
+            out[e.key.split("(")[-2].split("::")[-1]] = us / iters
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -107,7 +138,8 @@ def nbytes(*ts) -> int:
 def kernel_phase(dev, card: str) -> dict:
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from repro_torch.kernels.flash_decode import (_split_plan, flash_decode,
+                                                  flash_decode_plain)
     from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
     from repro_torch.kernels.kv_quant import (kv_dequantize, kv_dequantize_plain,
                                               kv_quantize, kv_quantize_plain)
@@ -181,28 +213,66 @@ def kernel_phase(dev, card: str) -> dict:
         bound_ms=bms, bound_by=by,
         shape=f"q (1,{sq},{hq},{dh}) over {s} keys, q_offset {q_off}, bf16")
 
-    # 2. flash_decode: one token over 4096 slots (timed), then a check at
-    # position 3000 of a 4096-slot cache whose slots run to 3500: slots
-    # 3001-3499 are masked by position, 3500 on are empty
+    # 2. flash_decode: one token over 4096 slots (timed), then checks at the
+    # edges of its split over the cache: position 3000 of a 4096-slot cache
+    # whose slots run to 3500 (slots 3001-3499 masked by position, 3500 on
+    # empty: whole splits masked); position 100 of a full 4096-slot cache
+    # (every split but the first masked); the serve's four cache lengths,
+    # none a whole number of tiles, at their last position; two batch rows
+    # with their own K/V and a masked tail.  Each case names its n_split.
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
     qd = randn(1, hq, dh)
     out = flash_decode(qd, k, v, kpos, s - 1, scale=scale)
     ref = flash_decode_plain(qd, k, v, kpos, s - 1, scale=scale)
     cases = [dict(max_abs_err=float((out.float() - ref.float()).abs().max()),
                   max_abs_ref=float(ref.float().abs().max()), slots=s,
                   valid=s, at=s - 1),
-             attn_case(flash_decode, flash_decode_plain, qd, s, 3500, 3000, 3000)]
+             attn_case(flash_decode, flash_decode_plain, qd, s, 3500, 3000, 3000),
+             attn_case(flash_decode, flash_decode_plain, qd, s, s, 100, 100)]
+    for sl in (592, 1616, 2640, 4176):
+        cases.append(attn_case(flash_decode, flash_decode_plain, qd, sl, sl,
+                               sl - 1, sl - 1))
+    for c in cases:
+        c["n_split"] = _split_plan(1, hkv, c["slots"], sm)[1]
+    q2, k2, v2 = randn(2, hq, dh), randn(2, 2640, hkv, dh), randn(2, 2640, hkv, dh)
+    kp2 = torch.arange(2640, dtype=torch.int32, device=dev)
+    kp2[2600:] = -1
+    v2[:, 2600:] = 100.0
+    ref = flash_decode_plain(q2, k2, v2, kp2, 2599, scale=scale)
+    cases.append(dict(
+        max_abs_err=float((flash_decode(q2, k2, v2, kp2, 2599, scale=scale).float()
+                           - ref.float()).abs().max()),
+        max_abs_ref=float(ref.float().abs().max()), batch=2, slots=2640,
+        valid=2600, at=2599, n_split=_split_plan(2, hkv, 2640, sm)[1]))
+    # the instantiations off the model paths: 40 query heads on 2 KV heads
+    # (G 20: two groups, 16 and 4 padded to 16), 24 on 4 (G 6 padded to 10)
+    kp2 = torch.arange(1000, dtype=torch.int32, device=dev)
+    for hq2, hkv2 in ((40, 2), (24, 4)):
+        q2, k2, v2 = randn(1, hq2, dh), randn(1, 1000, hkv2, dh), randn(1, 1000, hkv2, dh)
+        ref = flash_decode_plain(q2, k2, v2, kp2, 999, scale=scale)
+        cases.append(dict(
+            max_abs_err=float((flash_decode(q2, k2, v2, kp2, 999, scale=scale).float()
+                               - ref.float()).abs().max()),
+            max_abs_ref=float(ref.float().abs().max()), heads=f"{hq2} on {hkv2}",
+            slots=1000, valid=1000, at=999, n_split=_split_plan(1, hkv2, 1000, sm)[1]))
+    del q2, k2, v2
     torch.cuda.synchronize()
     err = max(c["max_abs_err"] for c in cases)
     bms, by = bound(nbytes(qd, k, v, kpos, out), 4 * hq * dh * s)
     qdt = qd[:, :, None]
-    res["flash_decode"] = dict(
-        max_abs_err=err, tol=DECODE_TOL, cases=cases,
-        ms=time_ms(lambda: flash_decode(qd, k, v, kpos, s - 1, scale=scale), flush=flush),
+    ms = time_ms(lambda: flash_decode(qd, k, v, kpos, s - 1, scale=scale), flush=flush)
+    def call():
+        return flash_decode(qd, k, v, kpos, s - 1, scale=scale)
+    probe = dict(kernels_us=kernels_us(call, flush), kernels_us_warm=kernels_us(call))
+    res["flash_decode"] = dict(**probe,
+        max_abs_err=err, tol=DECODE_TOL, cases=cases, ms=ms,
         plain_ms=time_ms(lambda: flash_decode_plain(qd, k, v, kpos, s - 1, scale=scale),
                          flush=flush),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qdt, kt, vt, attn_mask=(kpos >= 0)[None], scale=scale), flush=flush),
-        bound_ms=bms, bound_by=by, shape=f"q (1,{hq},{dh}) over {s} slots, bf16")
+        bound_ms=bms, bound_by=by, bound_share=bms / ms,
+        n_split=_split_plan(1, hkv, s, sm)[1],
+        shape=f"q (1,{hq},{dh}) over {s} slots, bf16")
     del q, k, v, qt, kt, vt, mask
 
     # 3. kv_restore: one int8 load op of 256 tokens x 18 slots (stage 0 of 2)
@@ -291,7 +361,8 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
     the RG-LRU scan over (1, S, 2560) f32."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from repro_torch.kernels.flash_decode import (_split_plan, flash_decode,
+                                                  flash_decode_plain)
     from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
 
@@ -360,30 +431,48 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
 
     # flash_decode: the last decode step of the serve's longest request
     # (position 2126) over the wrapped ring (timed), then with stale slots
+    # (about three in each 32-slot split)
+    n_split = _split_plan(1, hkv, s, torch.cuda.get_device_properties(dev)
+                          .multi_processor_count)[1]
     qd = randn(1, hq, dh)
     qp = s + 64 + 14
     kr = ring_kpos(s, qp, dev)
     out = flash_decode(qd, k, v, kr, qp, **kw)
     cases = [dict(max_abs_err=err(out, flash_decode_plain(qd, k, v, kr, qp, **kw)),
-                  slots=s, at=qp, ring="wrapped")]
+                  slots=s, at=qp, ring="wrapped", n_split=n_split)]
     kr2, v2 = kr.clone(), v.clone()
     stale(kr2, qp, 200, v2)
     cases.append(dict(max_abs_err=err(flash_decode(qd, k, v2, kr2, qp, **kw),
                                       flash_decode_plain(qd, k, v2, kr2, qp, **kw)),
-                      slots=s, at=qp, ring="wrapped, 200 stale slots"))
+                      slots=s, at=qp, ring="wrapped, 200 stale slots",
+                      n_split=n_split))
+    # the instantiations off the model path: 8 query heads on 4 KV heads
+    # (G 2 padded to 4), 32 on 2 (G 16)
+    kph = ring_kpos(1000, 1400, dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for hq2, hkv2 in ((8, 4), (32, 2)):
+        qh, kh, vh = randn(1, hq2, dh), randn(1, 1000, hkv2, dh), randn(1, 1000, hkv2, dh)
+        cases.append(dict(max_abs_err=err(flash_decode(qh, kh, vh, kph, 1400, **kw),
+                                          flash_decode_plain(qh, kh, vh, kph, 1400, **kw)),
+                          heads=f"{hq2} on {hkv2}", slots=1000, at=1400, ring="wrapped",
+                          n_split=_split_plan(1, hkv2, 1000, sm)[1]))
+    del qh, kh, vh
     torch.cuda.synchronize()
     bms, by = bound(nbytes(qd, k, v, kr, out), 4 * hq * dh * s)
     qt, kt, vt, mask = sdpa_args(qd[:, None], k, v, kr,
                                  torch.tensor([qp], device=dev))
-    res["flash_decode_dh256"] = dict(
+    ms = time_ms(lambda: flash_decode(qd, k, v, kr, qp, **kw), flush=flush)
+    def call():
+        return flash_decode(qd, k, v, kr, qp, **kw)
+    probe = dict(kernels_us=kernels_us(call, flush), kernels_us_warm=kernels_us(call))
+    res["flash_decode_dh256"] = dict(**probe,
         max_abs_err=max(c["max_abs_err"] for c in cases), tol=DECODE_TOL,
-        cases=cases,
-        ms=time_ms(lambda: flash_decode(qd, k, v, kr, qp, **kw), flush=flush),
+        cases=cases, ms=ms,
         plain_ms=time_ms(lambda: flash_decode_plain(qd, k, v, kr, qp, **kw),
                          flush=flush),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=scale), flush=flush),
-        bound_ms=bms, bound_by=by,
+        bound_ms=bms, bound_by=by, bound_share=bms / ms, n_split=n_split,
         shape=f"q (1,{hq},{dh}) over a {s}-slot ring at position {qp}, window {win}, bf16")
     del q, k, v, v2, qt, kt, vt, mask
 
@@ -473,6 +562,33 @@ def rwkv_kernel_cases(dev, g, flush, res: dict):
         s_last_tol=WKV6_S_TOL, invariant_512=invariant,
         cases=cases, **timed[256], library_ms=None, s4096=timed[4096], s1=timed[1],
         shape=f"r, k, v, w (1,256,{h},{dh}) f32, u ({h},{dh}), s0 (1,{h},{dh},{dh})")
+
+
+def decode_sweep(dev):
+    """flash_decode over the cache lengths and batch rows its split plan
+    meets, at both model shapes: the plan and the device time of each of
+    its two kernels (torch.profiler), inputs cold in L2 and warm."""
+    import torch
+    from repro_torch.kernels.flash_decode import _split_plan, flash_decode
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for hq, hkv, dh in ((32, 8, 128), (10, 1, 256)):
+        for b in (1, 2):
+            for s in (32, 592, 1616, 2640, 4176, 8192):
+                q = torch.randn(b, hq, dh, generator=g, device=dev).bfloat16()
+                k, v = (torch.randn(b, s, hkv, dh, generator=g, device=dev).bfloat16()
+                        for _ in range(2))
+                kp = torch.arange(s, dtype=torch.int32, device=dev)
+
+                def call():
+                    return flash_decode(q, k, v, kp, s - 1, scale=dh ** -0.5)
+                per, n = _split_plan(b, hkv, s, sm)
+                print(json.dumps({"decode_sweep": dict(
+                    dh=dh, hq=hq, hkv=hkv, b=b, s=s, split_slots=per, n_split=n,
+                    blocks=b * hkv * n, cold_us=kernels_us(call, scratch.zero_),
+                    warm_us=kernels_us(call))}))
 
 
 # ---------------------------------------------------------------------------
@@ -822,6 +938,9 @@ def main(argv=None) -> int:
                     help="build and check the kernels, skip the serve")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one more serve of each path with torch.profiler")
+    ap.add_argument("--decode-sweep", action="store_true",
+                    help="after the kernel checks, time flash_decode's two kernels "
+                         "over cache lengths and batch rows; skip the serves")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)   # lines survive a kill
 
@@ -849,7 +968,9 @@ def main(argv=None) -> int:
     kres = kernel_phase(dev, card)
     print(json.dumps({"kernel_phase_s": time.perf_counter() - t0}))
     sres = hres = rres = None
-    if not args.kernels_only:
+    if args.decode_sweep:
+        decode_sweep(dev)
+    elif not args.kernels_only:
         sres = serve_phase(dev, card, args.profile)
         # the engine and executor hold each other: collect the cycle so the
         # next path's peak memory does not count the last path's leftovers

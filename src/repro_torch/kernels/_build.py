@@ -40,8 +40,9 @@ _SIGNATURES = {
     # q, k, v, kpos, out, B, Sq, S, Hq, Hkv, Dh, q_offset, window, scale,
     # stream
     "flash_prefill_bf16": [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P],
-    # q, k, v, kpos, out, B, S, Hq, Hkv, Dh, q_pos, window, scale, stream
-    "flash_decode_bf16": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P],
+    # q, k, v, kpos, out, m, l, acc, B, S, Hq, Hkv, Dh, q_pos, window,
+    # n_split, split_slots, scale, stream
+    "flash_decode_bf16": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
     # nf, caches*, staged*, scales*, chans*, S, T, t0, slot_lo, n_slots,
     # rows, cs, dtype, stream
     "kv_restore": [_I, _P, _P, _P, _P] + [_I] * 8 + [_P],
