@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --kernels-only    # build + kernel phase only
     python3 chip_smoke.py --profile         # also trace one serve of each model
     python3 chip_smoke.py --decode-sweep    # kernel phase + flash_decode over S, B
+    python3 chip_smoke.py --prefill-sweep   # kernel phase + flash_prefill over n_split
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the shapes
@@ -101,10 +102,10 @@ def time_ms(fn, *, iters: int = 21, flush=None):
     return statistics.median(times)
 
 
-def kernels_us(fn, flush=None, iters: int = 5) -> dict:
-    """Device time per call of each kernel ``fn`` launches (torch.profiler),
-    after ``flush`` as in ``time_ms`` or, without one, with the inputs warm
-    in L2 from the call before."""
+def kernels_us(fn, flush=None, iters: int = 5, match: str = "flash_decode") -> dict:
+    """Device time per call of each kernel ``fn`` launches whose name holds
+    ``match`` (torch.profiler), after ``flush`` as in ``time_ms`` or, without
+    one, with the inputs warm in L2 from the call before."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -121,13 +122,77 @@ def kernels_us(fn, flush=None, iters: int = 5) -> dict:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        if "flash_decode" in e.key and us:
+        if match in e.key and us:
             out[e.key.split("(")[-2].split("::")[-1]] = us / iters
     return out
 
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def ptxas_spills(log: str) -> dict:
+    """{source: [function, ...]} of every kernel the ptxas report shows
+    spilling (nonzero spill stores or loads)."""
+    import re
+    out, src, fn = {}, None, None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            out.setdefault(src, []).append(fn)
+    return out
+
+
+def prefill_timing(q, k, v, kpos, q_off: int, window: int, flush, sm: int) -> dict:
+    """flash_prefill at one shape: kernel, plain version and SDPA (boolean
+    mask over K/V expanded to every query head) by CUDA events, inputs cold
+    in L2; each of the kernel's launches (split kernel, combine) by
+    torch.profiler, cold and warm; the bound from the visible (query, key)
+    pairs of this run's kpos; the plan's M tile and n_split."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import _plan, flash_prefill, flash_prefill_plain
+
+    b, sq, hq, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    scale = dh ** -0.5
+    kw = dict(scale=scale, window=window)
+    qpos = q_off + torch.arange(sq, device=q.device)
+    mask = (kpos[None] >= 0) & (kpos[None] <= qpos[:, None])
+    if window > 0:
+        mask &= kpos[None] > qpos[:, None] - window
+    pairs = int(mask.sum())
+    out = flash_prefill(q, k, v, kpos, q_off, **kw)
+    bms, by = bound(nbytes(q, k, v, kpos, out), 4 * hq * dh * pairs * b)
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+
+    def call():
+        return flash_prefill(q, k, v, kpos, q_off, **kw)
+    ms = time_ms(call, flush=flush)
+    m_tile, n_split, split_slots = _plan(b, hkv, sq, hq // hkv, s, sm)
+    # the kernel and the plain version against the f32 answer (the plain
+    # version in f32 throughout)
+    ref32 = flash_prefill_plain(q.float(), k.float(), v.float(), kpos, q_off, **kw)
+    return dict(
+        ms=ms,
+        err_vs_f32=float((out.float() - ref32).abs().max()),
+        plain_err_vs_f32=float((flash_prefill_plain(q, k, v, kpos, q_off, **kw).float()
+                                - ref32).abs().max()),
+        plain_ms=time_ms(lambda: flash_prefill_plain(q, k, v, kpos, q_off, **kw),
+                         flush=flush, iters=7),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale), flush=flush),
+        bound_ms=bms, bound_by=by, bound_share=bms / ms,
+        kernels_us=kernels_us(call, flush, match="flash_prefill"),
+        kernels_us_warm=kernels_us(call, match="flash_prefill"),
+        m_tile=m_tile, n_split=n_split, split_slots=split_slots)
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +244,14 @@ def kernel_phase(dev, card: str) -> dict:
     # (timed), then two checks: a 200-row recompute chunk at position 1024
     # of a cache whose loaded slots run to 3000 (the key tiles past the
     # chunk are skipped) and a 64-token suffix prefill after a 3000-token
-    # prefix in a cache grown to 3100 slots (trailing empty slots)
+    # prefix in a cache grown to 3100 slots (trailing empty slots); then
+    # the serve's longest suffix (timed): 64 rows at 4096 over its
+    # 4176-slot cache, slots past 4159 empty; and rows that see no slot:
+    # a 256-row chunk at 0 over 1024 slots, 512 of them at position 128 and
+    # 512 at 5000 (rows 0-127 see nothing, rows 128-255 see 512 slots; the
+    # M tiles fill the card, so the kernel's own epilogue takes them), V N(0, 1)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    from repro_torch.kernels.flash_prefill import _plan
     sq, q_off = 256, s - 256
     q = randn(1, sq, hq, dh)
     k = randn(1, s, hkv, dh)
@@ -189,29 +261,42 @@ def kernel_phase(dev, card: str) -> dict:
     ref = flash_prefill_plain(q, k, v, kpos, q_off, scale=scale)
     cases = [dict(max_abs_err=float((out.float() - ref.float()).abs().max()),
                   max_abs_ref=float(ref.float().abs().max()), slots=s,
-                  valid=s, at=q_off),
+                  valid=s, at=q_off, rows=sq),
              attn_case(flash_prefill, flash_prefill_plain, randn(1, 200, hq, dh),
-                       4150, 3000, 1223, 1024),
+                       4150, 3000, 1223, 1024) | dict(rows=200),
              attn_case(flash_prefill, flash_prefill_plain, randn(1, 64, hq, dh),
-                       3100, 3064, 3063, 3000)]
+                       3100, 3064, 3063, 3000) | dict(rows=64),
+             attn_case(flash_prefill, flash_prefill_plain, randn(1, 64, hq, dh),
+                       4176, 4160, 4159, 4096) | dict(rows=64)]
+    qm, km, vm = randn(1, 256, hq, dh), randn(1, 1024, hkv, dh), randn(1, 1024, hkv, dh)
+    kpm = torch.full((1024,), 5000, dtype=torch.int32, device=dev)
+    kpm[:512] = 128
+    ref = flash_prefill_plain(qm, km, vm, kpm, 0, scale=scale)
+    cases.append(dict(max_abs_err=float((flash_prefill(qm, km, vm, kpm, 0, scale=scale)
+                                         .float() - ref.float()).abs().max()),
+                      max_abs_ref=float(ref.float().abs().max()), slots=1024, at=0,
+                      rows=256, rows_seeing_nothing=128, tol=PREFILL_TOL))
+    for c in cases:
+        c["m_tile"], c["n_split"] = _plan(1, hkv, c["rows"], hq // hkv, c["slots"], sm)[:2]
     torch.cuda.synchronize()
     err = max(c["max_abs_err"] for c in cases)
-    qpos = q_off + torch.arange(sq, device=dev)
-    pairs = int(((kpos[None] >= 0) & (kpos[None] <= qpos[:, None])).sum())
-    bms, by = bound(nbytes(q, k, v, kpos, out), 4 * hq * dh * pairs)
+    res["flash_prefill"] = dict(
+        max_abs_err=err, tol=PREFILL_TOL, cases=cases,
+        **prefill_timing(q, k, v, kpos, q_off, 0, flush, sm),
+        shape=f"q (1,{sq},{hq},{dh}) over {s} keys, q_offset {q_off}, bf16")
+    qs_, ks_, vs_ = randn(1, 64, hq, dh), randn(1, 4176, hkv, dh), randn(1, 4176, hkv, dh)
+    kps_ = torch.arange(4176, dtype=torch.int32, device=dev)
+    kps_[4160:] = -1
+    ref = flash_prefill_plain(qs_, ks_, vs_, kps_, 4096, scale=scale)
+    res["flash_prefill_suffix"] = dict(
+        max_abs_err=float((flash_prefill(qs_, ks_, vs_, kps_, 4096, scale=scale).float()
+                           - ref.float()).abs().max()), tol=PREFILL_TOL,
+        **prefill_timing(qs_, ks_, vs_, kps_, 4096, 0, flush, sm),
+        shape="q (1,64,32,128) at q_offset 4096 over 4176 slots, 4160-4175 empty, bf16")
+    del qs_, ks_, vs_, qm, km, vm
     qt = q.transpose(1, 2)
     kt = k.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
     vt = v.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
-    mask = (kpos[None] <= qpos[:, None]) & (kpos[None] >= 0)
-    res["flash_prefill"] = dict(
-        max_abs_err=err, tol=PREFILL_TOL, cases=cases,
-        ms=time_ms(lambda: flash_prefill(q, k, v, kpos, q_off, scale=scale), flush=flush),
-        plain_ms=time_ms(lambda: flash_prefill_plain(q, k, v, kpos, q_off, scale=scale),
-                         flush=flush, iters=7),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=scale), flush=flush),
-        bound_ms=bms, bound_by=by,
-        shape=f"q (1,{sq},{hq},{dh}) over {s} keys, q_offset {q_off}, bf16")
 
     # 2. flash_decode: one token over 4096 slots (timed), then checks at the
     # edges of its split over the cache: position 3000 of a 4096-slot cache
@@ -219,8 +304,8 @@ def kernel_phase(dev, card: str) -> dict:
     # empty: whole splits masked); position 100 of a full 4096-slot cache
     # (every split but the first masked); the serve's four cache lengths,
     # none a whole number of tiles, at their last position; two batch rows
-    # with their own K/V and a masked tail.  Each case names its n_split.
-    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # with their own K/V and a masked tail; a query below every kpos (no
+    # slot visible: the mean of V, V N(0, 1)).  Each case names its n_split.
     qd = randn(1, hq, dh)
     out = flash_decode(qd, k, v, kpos, s - 1, scale=scale)
     ref = flash_decode_plain(qd, k, v, kpos, s - 1, scale=scale)
@@ -232,6 +317,12 @@ def kernel_phase(dev, card: str) -> dict:
     for sl in (592, 1616, 2640, 4176):
         cases.append(attn_case(flash_decode, flash_decode_plain, qd, sl, sl,
                                sl - 1, sl - 1))
+    kpm = kpos + 100
+    ref = flash_decode_plain(qd, k, v, kpm, 50, scale=scale)
+    cases.append(dict(max_abs_err=float((flash_decode(qd, k, v, kpm, 50, scale=scale)
+                                         .float() - ref.float()).abs().max()),
+                      max_abs_ref=float(ref.float().abs().max()), slots=s, at=50,
+                      seeing_nothing=True, tol=DECODE_TOL))
     for c in cases:
         c["n_split"] = _split_plan(1, hkv, c["slots"], sm)[1]
     q2, k2, v2 = randn(2, hq, dh), randn(2, 2640, hkv, dh), randn(2, 2640, hkv, dh)
@@ -273,7 +364,7 @@ def kernel_phase(dev, card: str) -> dict:
         bound_ms=bms, bound_by=by, bound_share=bms / ms,
         n_split=_split_plan(1, hkv, s, sm)[1],
         shape=f"q (1,{hq},{dh}) over {s} slots, bf16")
-    del q, k, v, qt, kt, vt, mask
+    del q, k, v, qt, kt, vt
 
     # 3. kv_restore: one int8 load op of 256 tokens x 18 slots (stage 0 of 2)
     a, t, t0, cs, ns, c = 36, 256, 1024, 16, 18, hkv * dh
@@ -391,7 +482,12 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
 
     # flash_prefill: the last 256-token chunk of a 2048-token prefix over the
     # full cache (timed); the 64-token suffix at 2048 over the ring it just
-    # wrapped (slots 0-63 now hold 2048-2111); the same with stale slots
+    # wrapped (slots 0-63 now hold 2048-2111; timed); the same with stale
+    # slots; and, under a 512-token window, rows whose whole window holds
+    # stale slots (every slot at position 100, but for 1024 at 2090: rows
+    # 2048-2089 see nothing, rows 2090-2111 see 1024 slots), V N(0, 1)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    from repro_torch.kernels.flash_prefill import _plan
     sq, q_off = 256, s - 256
     q = randn(1, sq, hq, dh)
     k, v = randn(1, s, hkv, dh), randn(1, s, hkv, dh)
@@ -411,29 +507,31 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
     cases.append(dict(max_abs_err=err(flash_prefill(qs_, k, v2, kr2, s, **kw),
                                       flash_prefill_plain(qs_, k, v2, kr2, s, **kw)),
                       slots=s, at=s, rows=64, ring="wrapped, 200 stale slots"))
+    kr3 = torch.full_like(kr, 100)
+    kr3[:1024] = 2090
+    kw3 = dict(scale=scale, window=512)
+    cases.append(dict(max_abs_err=err(flash_prefill(qs_, k, v, kr3, s, **kw3),
+                                      flash_prefill_plain(qs_, k, v, kr3, s, **kw3)),
+                      slots=s, at=s, rows=64, window=512, tol=PREFILL_TOL,
+                      ring="rows 0-41 see only stale slots"))
+    for c in cases:
+        c["m_tile"], c["n_split"] = _plan(1, hkv, c["rows"], hq // hkv, s, sm)[:2]
     torch.cuda.synchronize()
-    qpos = q_off + torch.arange(sq, device=dev)
-    pairs = int(((kpos[None] >= 0) & (kpos[None] <= qpos[:, None])
-                 & (kpos[None] > qpos[:, None] - win)).sum())
-    bms, by = bound(nbytes(q, k, v, kpos, out), 4 * hq * dh * pairs)
-    qt, kt, vt, mask = sdpa_args(q, k, v, kpos, qpos)
     res["flash_prefill_dh256"] = dict(
         max_abs_err=max(c["max_abs_err"] for c in cases), tol=PREFILL_TOL,
-        cases=cases,
-        ms=time_ms(lambda: flash_prefill(q, k, v, kpos, q_off, **kw), flush=flush),
-        plain_ms=time_ms(lambda: flash_prefill_plain(q, k, v, kpos, q_off, **kw),
-                         flush=flush, iters=7),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=scale), flush=flush),
-        bound_ms=bms, bound_by=by,
+        cases=cases, **prefill_timing(q, k, v, kpos, q_off, win, flush, sm),
         shape=f"q (1,{sq},{hq},{dh}) over {s} keys, q_offset {q_off}, window {win}, bf16")
-    del qt, kt, vt, mask
+    res["flash_prefill_dh256_suffix"] = dict(
+        max_abs_err=cases[1]["max_abs_err"], tol=PREFILL_TOL,
+        **prefill_timing(qs_, k, v, kr, s, win, flush, sm),
+        shape=f"q (1,64,{hq},{dh}) at q_offset {s} over the {s}-slot ring wrapped "
+              f"to {s + 63}, window {win}, bf16")
 
     # flash_decode: the last decode step of the serve's longest request
     # (position 2126) over the wrapped ring (timed), then with stale slots
-    # (about three in each 32-slot split)
-    n_split = _split_plan(1, hkv, s, torch.cuda.get_device_properties(dev)
-                          .multi_processor_count)[1]
+    # (about three in each 32-slot split), then with every slot one ring
+    # turn older than the window (no slot visible: the mean of V, V N(0, 1))
+    n_split = _split_plan(1, hkv, s, sm)[1]
     qd = randn(1, hq, dh)
     qp = s + 64 + 14
     kr = ring_kpos(s, qp, dev)
@@ -446,10 +544,14 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
                                       flash_decode_plain(qd, k, v2, kr2, qp, **kw)),
                       slots=s, at=qp, ring="wrapped, 200 stale slots",
                       n_split=n_split))
+    kr3 = kr - s
+    cases.append(dict(max_abs_err=err(flash_decode(qd, k, v, kr3, qp, **kw),
+                                      flash_decode_plain(qd, k, v, kr3, qp, **kw)),
+                      slots=s, at=qp, ring="every slot stale", tol=DECODE_TOL,
+                      n_split=n_split))
     # the instantiations off the model path: 8 query heads on 4 KV heads
     # (G 2 padded to 4), 32 on 2 (G 16)
     kph = ring_kpos(1000, 1400, dev)
-    sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for hq2, hkv2 in ((8, 4), (32, 2)):
         qh, kh, vh = randn(1, hq2, dh), randn(1, 1000, hkv2, dh), randn(1, 1000, hkv2, dh)
         cases.append(dict(max_abs_err=err(flash_decode(qh, kh, vh, kph, 1400, **kw),
@@ -589,6 +691,54 @@ def decode_sweep(dev):
                     dh=dh, hq=hq, hkv=hkv, b=b, s=s, split_slots=per, n_split=n,
                     blocks=b * hkv * n, cold_us=kernels_us(call, scratch.zero_),
                     warm_us=kernels_us(call))}))
+
+
+def prefill_sweep(dev):
+    """flash_prefill at its four timed shapes with the cache cut into the
+    plan's n_split and into one split, about half and about twice as many:
+    device time by CUDA events (L2 flushed) and the error against the plain
+    version, so the plan's choice can be read against its neighbours."""
+    import torch
+    import repro_torch.kernels.flash_prefill as fp
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    # name: (Sq, Hq, Hkv, Dh, S, q_offset, window, kpos)
+    shapes = {
+        "qwen3": (256, 32, 8, 128, 4096, 3840, 0, torch.arange(4096, device=dev)),
+        "qwen3_suffix": (64, 32, 8, 128, 4176, 4096, 0,
+                         torch.where(torch.arange(4176, device=dev) < 4160,
+                                     torch.arange(4176, device=dev), -1)),
+        "hybrid": (256, 10, 1, 256, 2048, 1792, 2048, torch.arange(2048, device=dev)),
+        "hybrid_suffix": (64, 10, 1, 256, 2048, 2048, 2048, ring_kpos(2048, 2111, dev)),
+    }
+    plan = fp._plan
+    try:
+        for name, (sq, hq, hkv, dh, s, q_off, win, kp) in shapes.items():
+            q, k, v = rnd(1, sq, hq, dh), rnd(1, s, hkv, dh), rnd(1, s, hkv, dh)
+            kp = kp.to(torch.int32)
+            kw = dict(scale=dh ** -0.5, window=win)
+            ref = fp.flash_prefill_plain(q, k, v, kp, q_off, **kw).float()
+            m_tile, n0, _ = plan(1, hkv, sq, hq // hkv, s, sm)
+            tiles = -(-s // fp.TILE)
+            for want in sorted({1, max(1, n0 // 2), n0, min(tiles, 2 * n0)}):
+                per = -(-tiles // want)
+                n = -(-tiles // per)
+                fp._plan = lambda *a, n=n, per=per: (m_tile, n, per * fp.TILE)
+
+                def call():
+                    return fp.flash_prefill(q, k, v, kp, q_off, **kw)
+                err = float((call().float() - ref).abs().max())
+                print(json.dumps({"prefill_sweep": dict(
+                    shape=name, n_split=n, plan=n == n0, blocks=hkv * -(-sq * hq // hkv // m_tile) * n,
+                    ms=time_ms(call, flush=scratch.zero_), max_abs_err=err)}))
+    finally:
+        fp._plan = plan
 
 
 # ---------------------------------------------------------------------------
@@ -941,6 +1091,9 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-sweep", action="store_true",
                     help="after the kernel checks, time flash_decode's two kernels "
                          "over cache lengths and batch rows; skip the serves")
+    ap.add_argument("--prefill-sweep", action="store_true",
+                    help="after the kernel checks, time flash_prefill at its four "
+                         "shapes over n_split around the plan's; skip the serves")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)   # lines survive a kill
 
@@ -959,10 +1112,13 @@ def main(argv=None) -> int:
     so = _build.build()
     print(json.dumps({"build": str(so.relative_to(HERE)),
                       "build_s": time.perf_counter() - t0}))
-    for line in so.with_suffix(".log").read_text().splitlines():
+    log = so.with_suffix(".log").read_text()
+    for line in log.splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill")) \
                 or line.startswith("=="):
             print(line.strip())
+    spills = ptxas_spills(log)
+    print(json.dumps({"ptxas_spills": spills}))
 
     t0 = time.perf_counter()
     kres = kernel_phase(dev, card)
@@ -970,7 +1126,9 @@ def main(argv=None) -> int:
     sres = hres = rres = None
     if args.decode_sweep:
         decode_sweep(dev)
-    elif not args.kernels_only:
+    if args.prefill_sweep:
+        prefill_sweep(dev)
+    if not (args.kernels_only or args.decode_sweep or args.prefill_sweep):
         sres = serve_phase(dev, card, args.profile)
         # the engine and executor hold each other: collect the cycle so the
         # next path's peak memory does not count the last path's leftovers
@@ -986,14 +1144,16 @@ def main(argv=None) -> int:
           "src/repro/kernels/flash_prefill/kernel.py:81")
     fd = ("src/repro_torch/csrc/flash_decode.cu",
           "src/repro/kernels/flash_decode/kernel.py:69")
-    table = [("flash_prefill", *fp, sres), ("flash_decode", *fd, sres),
+    table = [("flash_prefill", *fp, sres), ("flash_prefill_suffix", *fp, sres),
+             ("flash_decode", *fd, sres),
              ("kv_restore", "src/repro_torch/csrc/kv_restore.cu",
               "src/repro/kernels/kv_restore/kernel.py:55", sres),
              ("kv_quantize", "src/repro_torch/csrc/kv_quant.cu",
               "src/repro/kernels/kv_quant/kernel.py:54", sres),
              ("kv_dequantize", "src/repro_torch/csrc/kv_quant.cu",
               "src/repro/kernels/kv_quant/kernel.py:84", sres),
-             ("flash_prefill_dh256", *fp, hres), ("flash_decode_dh256", *fd, hres),
+             ("flash_prefill_dh256", *fp, hres), ("flash_prefill_dh256_suffix", *fp, hres),
+             ("flash_decode_dh256", *fd, hres),
              ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan/kernel.py:49", hres),
              ("wkv6", "src/repro_torch/csrc/wkv6.cu",
@@ -1001,15 +1161,19 @@ def main(argv=None) -> int:
     rows = []
     for name, src, replaces, served in table:
         k = kres[name]
-        counter = name.replace("_dh256", "")
+        # the suffix entries time the same wrapper: its count covers both
+        counter = name.replace("_dh256", "").replace("_suffix", "")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": served["launches"][counter] if served else None,
                      "path": served["arch"] if served else None,
                      "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
                      "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
-                     "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms")})
+                     "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"),
+                     "bound_share": k["bound_ms"] / k["ms"]})
     print(json.dumps({"kernels": rows}))
+    if spills.get("flash_prefill.cu"):
+        raise AssertionError(f"flash_prefill spills: {spills['flash_prefill.cu']}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

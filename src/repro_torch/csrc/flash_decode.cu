@@ -41,11 +41,11 @@
 // 2. `flash_decode_combine_kernel`, one block per (query head, batch row,
 //    64 columns): M = max_s m_s, out = sum_s e^{m_s-M} acc_s /
 //    max(sum_s e^{m_s-M} l_s, 1e-30), rounded to bf16 once.  A split with
-//    m = -inf adds 0 (never exp(-inf - -inf)).
-//
-// A row with no visible slot at all returns 0 (the plain version, masking
-// with a finite -1e30, averages V there); the serve never asks for one:
-// the query's own slot is written before it attends.
+//    m = -inf adds 0 (never exp(-inf - -inf)).  A row where every split
+//    has m = -inf (no visible slot at all) takes what the plain version's
+//    finite -1e30 mask gives it: a uniform softmax over all S slots, the
+//    mean of V over [0, S) in f32.  Only such rows read V here, so the
+//    main path pays nothing for them.
 // Left for later: one launch with a "last block combines" counter,
 // mma.sync for the scores, thread block clusters.
 #include "common.cuh"
@@ -286,8 +286,9 @@ __global__ void __launch_bounds__(FC_THREADS)
 flash_decode_combine_kernel(const float* __restrict__ m_part,
                             const float* __restrict__ l_part,
                             const float* __restrict__ acc_part,
+                            const __nv_bfloat16* __restrict__ v,
                             __nv_bfloat16* __restrict__ out, int Hq, int DH,
-                            int n_split) {
+                            int n_split, int S, int Hkv, int G) {
   constexpr int NT = FC_THREADS, NW = NT / 32;
   constexpr int C4 = FC_COLS / 4;  // float4 columns of the block
   constexpr int NG = NT / C4;      // split groups
@@ -309,6 +310,39 @@ flash_decode_combine_kernel(const float* __restrict__ m_part,
   for (int w = 1; w < NW; ++w) M = fmaxf(M, red[w]);
   __syncthreads();   // red is reused below
 
+  const int grp = tid / C4, c = tid % C4;
+  if (M == -INFINITY) {
+    // no split saw a slot: groups of threads sum every NG-th row of V over
+    // 4 columns each, and the groups meet in shared memory
+    const size_t kv_row = (size_t)Hkv * DH;
+    const __nv_bfloat16* vb = v + (size_t)b * S * kv_row + (size_t)(h / G) * DH + col0 + 4 * c;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int j = grp; j < S; j += NG) {
+      const uint2 w = *reinterpret_cast<const uint2*>(vb + (size_t)j * kv_row);
+      t.x += __uint_as_float(w.x << 16);
+      t.y += __uint_as_float(w.x & 0xffff0000u);
+      t.z += __uint_as_float(w.y << 16);
+      t.w += __uint_as_float(w.y & 0xffff0000u);
+    }
+    sums[grp][c] = t;
+    __syncthreads();
+    if (tid < C4) {
+      float4 u = sums[0][tid];
+#pragma unroll
+      for (int g = 1; g < NG; ++g) {
+        const float4 x = sums[g][tid];
+        u.x += x.x; u.y += x.y; u.z += x.z; u.w += x.w;
+      }
+      const float w = 1.f / (float)S;
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
+          out + ((size_t)b * Hq + h) * DH + col0 + 4 * tid);
+      o[0] = __floats2bfloat162_rn(u.x * w, u.y * w);
+      o[1] = __floats2bfloat162_rn(u.z * w, u.w * w);
+    }
+    return;
+  }
+
   // a split with m = -inf (no visible slot) weighs 0: never exp(-inf - M)
   float den = 0.f;
   for (int s = tid; s < n_split; s += NT) {
@@ -319,7 +353,6 @@ flash_decode_combine_kernel(const float* __restrict__ m_part,
   for (int off = 16; off > 0; off >>= 1) den += __shfl_xor_sync(0xffffffffu, den, off);
   if (lane == 0) red[warp] = den;
 
-  const int grp = tid / C4, c = tid % C4;
   float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
   for (int s = grp; s < n_split; s += NG) {
@@ -372,7 +405,8 @@ int launch(const void* q, const void* k, const void* v, const void* kpos,
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_decode_combine_kernel<<<dim3(Hq, B, DH / FC_COLS), FC_THREADS, 0, stream>>>(
-      m_part, l_part, acc_part, (__nv_bfloat16*)out, Hq, DH, n_split);
+      m_part, l_part, acc_part, (const __nv_bfloat16*)v, (__nv_bfloat16*)out, Hq, DH,
+      n_split, S, Hkv, G);
   return (int)cudaGetLastError();
 }
 

@@ -37,9 +37,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, kpos, out, B, Sq, S, Hq, Hkv, Dh, q_offset, window, scale,
-    # stream
-    "flash_prefill_bf16": [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P],
+    # q, k, v, kpos, out, m, l, acc, B, Sq, S, Hq, Hkv, Dh, q_offset,
+    # window, n_split, split_slots, scale, stream
+    "flash_prefill_bf16": [_P] * 8 + [_I] * 10 + [ctypes.c_float, _P],
     # q, k, v, kpos, out, m, l, acc, B, S, Hq, Hkv, Dh, q_pos, window,
     # n_split, split_slots, scale, stream
     "flash_decode_bf16": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],

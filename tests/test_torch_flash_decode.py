@@ -7,7 +7,9 @@ held on the CPU:
   written out here in f32 and held against the port's plain version and
   the JAX reference (``ref`` and interpret mode) within ATOL = 1e-5 (f32
   sums in another order), on a windowed ring, with whole splits masked,
-  and with every split but one masked;
+  with every split but one masked, and with no slot visible at all (the
+  combine then gives the mean of V over every slot, as the reference's
+  finite -1e30 mask does);
 * the wrapper refuses a non-contiguous q, k, v or kpos before it launches.
 """
 import numpy as np
@@ -52,7 +54,8 @@ def two_pass(q, k, v, kpos, q_pos, *, scale, window, split_slots):
     """The kernel's arithmetic in f32: each split's running max m, sum l and
     unnormalised acc for every query head (m = -inf, l = 0, acc = 0 where no
     slot of the split is visible), then out = sum_s e^{m_s-M} acc_s /
-    max(sum_s e^{m_s-M} l_s, 1e-30)."""
+    max(sum_s e^{m_s-M} l_s, 1e-30), or the mean of V over all S slots of
+    the KV head where every split has m = -inf."""
     b, hq, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, dh).float()
@@ -75,6 +78,8 @@ def two_pass(q, k, v, kpos, q_pos, *, scale, window, split_slots):
     w = torch.where(m == -torch.inf, torch.zeros_like(m),
                     torch.exp(m - big.nan_to_num(neginf=0.0)))
     out = (w[..., None] * acc).sum(0) / (w * l).sum(0).clamp_min(1e-30)[..., None]
+    mean_v = v.float().sum(1) * (1.0 / s)                     # (b, hkv, d)
+    out = torch.where((big == -torch.inf)[..., None], mean_v[:, :, None], out)
     return out.reshape(b, hq, dh), m
 
 
@@ -85,6 +90,8 @@ CASES = {
     "whole_splits_masked": (0, lambda s: np.where(np.arange(s) < 300,
                                                   np.arange(s), -1), 180),
     "all_but_one_split_masked": (0, np.arange, 10),
+    # q_pos below every kpos: no slot visible, the mean of V over all S
+    "no_visible_slot": (0, lambda s: np.arange(s) + 50, 10),
 }
 
 
@@ -99,7 +106,8 @@ def test_two_pass_matches_plain_and_reference(case, backend):
     v = rng.standard_normal((b, s, hkv, dh)).astype(np.float32)
     kpos = kp_fn(s).astype(np.int32)
     seen = (kpos >= 0) & (kpos <= q_pos) & ((window <= 0) | (kpos > q_pos - window))
-    v[:, ~seen] = 100.0
+    if seen.any():
+        v[:, ~seen] = 100.0
     # a small card so the cache is cut into 13 splits of one tile
     split_slots, n_split = _split_plan(b, hkv, s, sm_count=32)
     assert (split_slots, n_split) == (TILE, 13)
@@ -111,8 +119,10 @@ def test_two_pass_matches_plain_and_reference(case, backend):
         assert 0 < masked < n_split
     elif case == "whole_splits_masked":
         assert masked == n_split - -(-(q_pos + 1) // TILE)
-    else:
+    elif case == "all_but_one_split_masked":
         assert masked == n_split - 1
+    else:
+        assert masked == n_split
     plain = flash_decode_plain(tq, tk, tv, tkp, q_pos, scale=dh ** -0.5,
                                window=window)
     want = flash_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
