@@ -8,6 +8,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --profile         # also trace one serve of each model
     python3 chip_smoke.py --decode-sweep    # kernel phase + flash_decode over S, B
     python3 chip_smoke.py --prefill-sweep   # kernel phase + flash_prefill over n_split
+    python3 chip_smoke.py --wkv-sweep       # kernel phase + wkv6 over (chunk, cols)
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the shapes
@@ -21,9 +22,9 @@ chunk store, recurrentgemma-2b with restoration of attention KV and RG-LRU
 state, rwkv6-7b with layer-wise restoration of its wkv and token-shift
 state — with suffix prefill, greedy decode and every restored cache
 verified, and checks that each kernel of a path launched during that
-path's serve (and that only ``wkv6`` launched during the RWKV serve).  The
-second-to-last line of stdout is a ``{"kernels": [...]}`` summary; the
-last line is the ok/device record.
+path's serve (and that only the two ``wkv6`` kernels launched during the
+RWKV serve).  The second-to-last line of stdout is a ``{"kernels": [...]}``
+summary; the last line is the ok/device record.
 Any failure raises (exit code != 0).  Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -54,13 +55,20 @@ DECODE_TOL = 1e-3
 # rglru_scan repeats its plain version's IEEE arithmetic step by step (expf,
 # a multiply, then an add, all in f32), so it is held to equality.
 RGLRU_TOL = 0.0
-# wkv6: max |kernel - plain| / max |plain|.  The state update repeats the
-# plain version's IEEE arithmetic (a product, a product, a sum), so s_last
-# is held to equality; y sums its 64-term dot products in another order.
-# Measured on an H100 (PERF.md): y within 1.6e-7 of max |y| at every S;
-# the bound is about three times that.
+# wkv6, the one-step kernel (S = 1): max |kernel - plain| / max |plain|.  Its
+# state update repeats the plain version's IEEE arithmetic (a product, a
+# product, a sum), so s_last is held to equality; y sums its 64-term dot
+# products in another order.  Measured on an H100 (PERF.md): y within 1.6e-7
+# of max |y|; the bound is about three times that.
 WKV6_Y_TOL = 5e-7
 WKV6_S_TOL = 0.0
+# wkv6, the chunked kernel (S >= 2): max |kernel - f64| / max |f64| on y and
+# on s_last, f64 being the plain sequential version run in float64.  The
+# chunked form sums in another order than the sequential scan, so neither
+# output is bit-exact against the f32 plain version; on the CPU the product
+# form and the f32 sequential scan both land 1e-7 to 7e-7 from f64
+# (tests/test_torch_wkv6.py), and the bound is about three times that.
+WKV6_F64_TOL = 1e-6
 
 
 def card_line() -> str:
@@ -432,6 +440,7 @@ def kernel_phase(dev, card: str) -> dict:
     bad = [n for n, r in res.items()
            if not r.get("max_rel_err", r["max_abs_err"]) <= r["tol"]
            or r.get("bit_exact") is False or r.get("invariant_512") is False
+           or r.get("finite") is False
            or not r.get("s_last_max_rel_err", 0.0) <= r.get("s_last_tol", 0.0)]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -607,48 +616,84 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
 
 
 def rwkv_kernel_cases(dev, g, flush, res: dict):
-    """rwkv6-7b's wkv recurrence, 64 heads of 64 in f32, at every S of its
-    serve: 256 (a restoration chunk, timed), 4096 (layer-wise recompute of
-    the longest prefix, timed), 64 (suffix prefill), 1 (decode, timed); s0
-    != 0 and w drawn as the model's decay, exp(-exp(.)) of normal inputs.
-    Then the invariance layer-wise restoration relies on: one call over 512
-    steps equals two chained calls over 256, bit for bit."""
+    """rwkv6-7b's wkv recurrence, 64 heads of 64 in f32; s0 != 0 and w drawn
+    as the model's decay, exp(-exp(N(mu, 1))).  The one-step kernel at S = 1
+    (decode, timed) against the plain version: s_last bit for bit.  The
+    chunked kernel against the plain version run in f64 at S = 256 (a
+    restoration chunk, timed; once more with zeros planted in w and once at
+    the model's own decays, mu = -6), 4096 (one long pass, timed: no serve
+    call is this long, the RWKV serve's histogram shows S = 256, 64 and 1
+    only), 64 (suffix prefill, timed), 40 (a ragged last chunk) and 2.  Then
+    the invariance layer-wise restoration relies on: one call over 512 steps
+    equals two chained calls over 256, bit for bit."""
     import torch
-    from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_plain
+    from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_chunked_plain, wkv6_plain
 
     h, dh = 64, 64
 
-    def inputs(sl):
+    def inputs(sl, mu=0.0, zeros=False):
         r, k, v = (torch.randn(1, sl, h, dh, generator=g, device=dev) for _ in range(3))
-        w = torch.exp(-torch.exp(torch.randn(1, sl, h, dh, generator=g, device=dev)))
+        w = torch.exp(-torch.exp(torch.randn(1, sl, h, dh, generator=g, device=dev) + mu))
+        if zeros:
+            w.view(-1)[::997] = 0.0
         return r, k, v, w, torch.randn(1, h, dh, dh, generator=g, device=dev)
 
     def rel(a, b):
-        return float((a - b).abs().max()) / float(b.abs().max())
+        return float((a.double() - b.double()).abs().max()) / float(b.abs().max())
+
+    def timing(sl, r, k, v, w, s0, y, last):
+        # five operations per state element per step (y: a product and a
+        # sum; S: two products and a sum) and four per row of the bonus
+        bms, by = bound(nbytes(r, k, v, w, u, s0, y, last),
+                        (5 * dh + 4) * sl * h * dh, F32_FLOP_PER_S)
+        def call():
+            return wkv6(r, k, v, w, u, s0)
+        return dict(ms=time_ms(call, flush=flush),
+                    plain_ms=time_ms(lambda: wkv6_plain(r, k, v, w, u, s0), flush=flush,
+                                     iters=3 if sl > 256 else 7),
+                    bound_ms=bms, bound_by=by,
+                    kernels_us=kernels_us(call, flush, match="wkv6"),
+                    kernels_us_warm=kernels_us(call, match="wkv6"))
 
     u = 0.1 * torch.randn(h, dh, generator=g, device=dev)
+    # the one-step kernel
+    r, k, v, w, s0 = inputs(1)
+    y, last = wkv6(r, k, v, w, u, s0)
+    yp, lastp = wkv6_plain(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    res["wkv6_step"] = dict(
+        max_abs_err=max(float((y - yp).abs().max()), float((last - lastp).abs().max())),
+        max_rel_err=rel(y, yp), tol=WKV6_Y_TOL, s_last_max_rel_err=rel(last, lastp),
+        s_last_tol=WKV6_S_TOL, bit_exact=torch.equal(last, lastp),
+        max_abs_y=float(yp.abs().max()), max_abs_s_last=float(lastp.abs().max()),
+        **timing(1, r, k, v, w, s0, y, last), library_ms=None,
+        shape=f"r, k, v, w (1,1,{h},{dh}) f32, u ({h},{dh}), s0 (1,{h},{dh},{dh})")
+
+    # the chunked kernel against f64
     cases, timed = [], {}
-    for sl in (256, 4096, 64, 1):
-        r, k, v, w, s0 = inputs(sl)
+    for sl, mu, zeros in ((256, 0.0, False), (256, 0.0, True), (256, -6.0, False),
+                          (4096, 0.0, False), (64, 0.0, False), (40, 0.0, True),
+                          (2, 0.0, False)):
+        r, k, v, w, s0 = inputs(sl, mu, zeros)
         y, last = wkv6(r, k, v, w, u, s0)
+        y64, last64 = wkv6_plain(r, k, v, w, u, s0, dtype=torch.float64)
         yp, lastp = wkv6_plain(r, k, v, w, u, s0)
+        yc, lastc = wkv6_chunked_plain(r, k, v, w, u, s0)
         torch.cuda.synchronize()
-        cases.append(dict(S=sl, y_rel_err=rel(y, yp), s_last_rel_err=rel(last, lastp),
-                          max_abs_err=max(float((y - yp).abs().max()),
-                                          float((last - lastp).abs().max())),
-                          max_abs_y=float(yp.abs().max()),
-                          max_abs_s_last=float(lastp.abs().max()),
-                          s_last_bit_exact=torch.equal(last, lastp)))
-        if sl != 64:
-            # five operations per state element per step (y: a product and a
-            # sum; S: two products and a sum) and four per row of the bonus
-            bms, by = bound(nbytes(r, k, v, w, u, s0, y, last),
-                            (5 * dh + 4) * sl * h * dh, F32_FLOP_PER_S)
-            timed[sl] = dict(
-                ms=time_ms(lambda: wkv6(r, k, v, w, u, s0), flush=flush),
-                plain_ms=time_ms(lambda: wkv6_plain(r, k, v, w, u, s0), flush=flush,
-                                 iters=3 if sl > 256 else 7),
-                bound_ms=bms, bound_by=by)
+        cases.append(dict(
+            S=sl, mu=mu, zeros_in_w=int((w == 0).sum()),
+            finite=bool(torch.isfinite(y).all() and torch.isfinite(last).all()),
+            y_rel_err_f64=rel(y, y64), s_last_rel_err_f64=rel(last, last64),
+            plain_y_rel_err_f64=rel(yp, y64), plain_s_last_rel_err_f64=rel(lastp, last64),
+            chunked_plain_y_rel_err_f64=rel(yc, y64),
+            chunked_plain_s_last_rel_err_f64=rel(lastc, last64),
+            y_rel_err_plain=rel(y, yp), s_last_rel_err_plain=rel(last, lastp),
+            max_abs_err=max(float((y.double() - y64).abs().max()),
+                            float((last.double() - last64).abs().max())),
+            max_abs_y=float(y64.abs().max()), max_abs_s_last=float(last64.abs().max())))
+        if mu == 0.0 and not zeros and sl in (256, 4096, 64):
+            timed[sl] = timing(sl, r, k, v, w, s0, y, last)
+        del y64, last64
     r, k, v, w, s0 = inputs(512)
     y, last = wkv6(r, k, v, w, u, s0)
     halves = [t[:, :256].contiguous() for t in (r, k, v, w)]
@@ -659,11 +704,51 @@ def rwkv_kernel_cases(dev, g, flush, res: dict):
     invariant = torch.equal(y, torch.cat([y1, y2], dim=1)) and torch.equal(last, last2)
     res["wkv6"] = dict(
         max_abs_err=max(c["max_abs_err"] for c in cases),
-        max_rel_err=max(c["y_rel_err"] for c in cases), tol=WKV6_Y_TOL,
-        s_last_max_rel_err=max(c["s_last_rel_err"] for c in cases),
-        s_last_tol=WKV6_S_TOL, invariant_512=invariant,
-        cases=cases, **timed[256], library_ms=None, s4096=timed[4096], s1=timed[1],
+        max_rel_err=max(c["y_rel_err_f64"] for c in cases), tol=WKV6_F64_TOL,
+        s_last_max_rel_err=max(c["s_last_rel_err_f64"] for c in cases),
+        s_last_tol=WKV6_F64_TOL, finite=all(c["finite"] for c in cases),
+        invariant_512=invariant, cases=cases, **timed[256], library_ms=None,
+        s4096=timed[4096], s64=timed[64],
         shape=f"r, k, v, w (1,256,{h},{dh}) f32, u ({h},{dh}), s0 (1,{h},{dh},{dh})")
+
+
+def wkv_sweep(dev):
+    """The chunked wkv6 kernel at every variant it is built for (steps a
+    chunk, state columns a block, state columns a lane): each checked
+    against the f64 plain version at S = 256, then timed at S = 256, 4096
+    and 64 (CUDA events, L2 flushed; torch.profiler at S = 256)."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan import CHUNKED_VARIANTS, wkv6, wkv6_plain
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+    h, dh = 64, 64
+
+    def flush():
+        scratch.zero_()
+
+    def inputs(sl):
+        r, k, v = (torch.randn(1, sl, h, dh, generator=g, device=dev) for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn(1, sl, h, dh, generator=g, device=dev)))
+        return r, k, v, w, torch.randn(1, h, dh, dh, generator=g, device=dev)
+
+    u = 0.1 * torch.randn(h, dh, generator=g, device=dev)
+    ins = {sl: inputs(sl) for sl in (256, 4096, 64)}
+    r, k, v, w, s0 = ins[256]
+    y64, last64 = wkv6_plain(r, k, v, w, u, s0, dtype=torch.float64)
+    for var in CHUNKED_VARIANTS:
+        y, last = wkv6(r, k, v, w, u, s0, variant=var)
+        torch.cuda.synchronize()
+        row = dict(chunk=var[0], cols=var[1], lane_cols=var[2],
+                   y_rel_err_f64=float((y.double() - y64).abs().max() / y64.abs().max()),
+                   s_last_rel_err_f64=float((last.double() - last64).abs().max()
+                                            / last64.abs().max()))
+        for sl, (r_, k_, v_, w_, s0_) in ins.items():
+            row[f"ms_{sl}"] = time_ms(
+                lambda: wkv6(r_, k_, v_, w_, u, s0_, variant=var), flush=flush)
+        row["kernels_us_256"] = kernels_us(
+            lambda: wkv6(r, k, v, w, u, s0, variant=var), flush, match="wkv6")
+        print(json.dumps({"wkv_sweep": row}))
 
 
 def decode_sweep(dev):
@@ -752,36 +837,55 @@ def prefill_sweep(dev):
 QWEN3_KERNELS = ("flash_prefill", "flash_decode", "kv_restore", "kv_quantize",
                  "kv_dequantize")
 HYBRID_KERNELS = ("rglru_scan", "flash_prefill", "flash_decode")
-# rwkv6-7b is attention-free and takes no chunk store: only wkv6 may launch
-RWKV_KERNELS = ("wkv6",)
+# rwkv6-7b is attention-free and takes no chunk store: only the two wkv6
+# kernels may launch (chunked for prefill and recompute, one step for decode)
+RWKV_KERNELS = ("wkv6", "wkv6_step")
 
 
 def counters():
+    """{name: (wrapper, its count attribute)}."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize
     from repro_torch.kernels.kv_restore import kv_restore_scatter
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_scan import wkv6
-    return {"flash_prefill": flash_prefill, "flash_decode": flash_decode,
-            "kv_restore": kv_restore_scatter, "kv_quantize": kv_quantize,
-            "kv_dequantize": kv_dequantize, "rglru_scan": rglru_scan, "wkv6": wkv6}
+    return {"flash_prefill": (flash_prefill, "launches"),
+            "flash_decode": (flash_decode, "launches"),
+            "kv_restore": (kv_restore_scatter, "launches"),
+            "kv_quantize": (kv_quantize, "launches"),
+            "kv_dequantize": (kv_dequantize, "launches"),
+            "rglru_scan": (rglru_scan, "launches"),
+            "wkv6": (wkv6, "launches"), "wkv6_step": (wkv6, "step_launches")}
 
 
 def zero_counters():
-    for w in counters().values():
-        w.launches = 0
+    from repro_torch.kernels.rwkv6_scan import wkv6
+    for w, attr in counters().values():
+        setattr(w, attr, 0)
+    wkv6.launches_by_len.clear()
 
 
 def read_counters() -> dict:
-    return {n: w.launches for n, w in counters().items()}
+    """Launches of each kernel since ``zero_counters``.  ``wkv6.launches``
+    counts both wkv6 kernels: the chunked kernel's are those less the one-step
+    kernel's."""
+    out = {n: getattr(w, attr) for n, (w, attr) in counters().items()}
+    out["wkv6"] -= out["wkv6_step"]
+    return out
+
+
+# substrings of the port's CUDA kernel names in a profiler trace
+PORT_KERNEL_NAMES = ("flash_prefill", "flash_decode", "kv_restore", "absmax_kernel",
+                     "quant_kernel", "rglru_scan", "wkv6")
 
 
 def profile_serve(serve) -> dict:
     """One more serve (``serve()``) under torch.profiler: device time by
-    kernel and the share of the traced wall time the device spent in
-    kernels and copies (summed over streams).  Separate from the timed
-    runs: tracing slows the host."""
+    kernel (the 15 largest, and every one of the port's own kernels) and the
+    share of the traced wall time the device spent in kernels and copies
+    (summed over streams).  Separate from the timed runs: tracing slows the
+    host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -801,7 +905,9 @@ def profile_serve(serve) -> dict:
     busy = sum(r[0] for r in rows) / 1e6
     return dict(traced_wall_s=wall, device_s=busy,
                 device_share=busy / wall if wall else None,
-                top=[dict(name=n, calls=c, device_ms=us / 1e3) for us, c, n in rows[:15]])
+                top=[dict(name=n, calls=c, device_ms=us / 1e3) for us, c, n in rows[:15]],
+                port_kernels=[dict(name=n, calls=c, device_ms=us / 1e3) for us, c, n in rows
+                              if any(m in n for m in PORT_KERNEL_NAMES)])
 
 
 def serve_phase(dev, card: str, profile: bool = False) -> dict:
@@ -1011,6 +1117,7 @@ def rwkv_serve_phase(dev, card: str, profile: bool = False) -> dict:
     restored state is each layer's wkv matrix and two token shifts."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan import wkv6
     from repro_torch.models import Model
     from repro_torch.serving import RealServingEngine, Request
 
@@ -1040,6 +1147,8 @@ def rwkv_serve_phase(dev, card: str, profile: bool = False) -> dict:
     torch.cuda.reset_peak_memory_stats()
     eng, reqs, rep, serve_s = serve()
     launches = read_counters()
+    by_len = dict(sorted(wkv6.launches_by_len.items()))
+    print(json.dumps({"rwkv_wkv6_launches_by_S": by_len}))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if profile:
         print(json.dumps({"rwkv_profile": profile_serve(serve)}))
@@ -1067,7 +1176,7 @@ def rwkv_serve_phase(dev, card: str, profile: bool = False) -> dict:
         io_busy=rep.io_busy, decode_busy=rep.decode_busy,
         overlap_decode_restore=rep.overlap_decode_restore, ttfts=rep.ttfts,
         restore_secs=rep.restore_secs, row_invariance=rows, requests=out,
-        launches=launches)
+        launches=launches, wkv6_launches_by_S=by_len)
     print(json.dumps({"rwkv_serve": result}, default=str))
     if bad:
         raise AssertionError(f"bad outputs (logits shape/finite, token count, "
@@ -1094,6 +1203,9 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill-sweep", action="store_true",
                     help="after the kernel checks, time flash_prefill at its four "
                          "shapes over n_split around the plan's; skip the serves")
+    ap.add_argument("--wkv-sweep", action="store_true",
+                    help="after the kernel checks, time the chunked wkv6 kernel at "
+                         "every variant it is built for; skip the serves")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)   # lines survive a kill
 
@@ -1128,7 +1240,10 @@ def main(argv=None) -> int:
         decode_sweep(dev)
     if args.prefill_sweep:
         prefill_sweep(dev)
-    if not (args.kernels_only or args.decode_sweep or args.prefill_sweep):
+    if args.wkv_sweep:
+        wkv_sweep(dev)
+    if not (args.kernels_only or args.decode_sweep or args.prefill_sweep
+            or args.wkv_sweep):
         sres = serve_phase(dev, card, args.profile)
         # the engine and executor hold each other: collect the cycle so the
         # next path's peak memory does not count the last path's leftovers
@@ -1157,6 +1272,8 @@ def main(argv=None) -> int:
              ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan/kernel.py:49", hres),
              ("wkv6", "src/repro_torch/csrc/wkv6.cu",
+              "src/repro/kernels/rwkv6_scan/kernel.py:56", rres),
+             ("wkv6_step", "src/repro_torch/csrc/wkv6.cu",
               "src/repro/kernels/rwkv6_scan/kernel.py:56", rres)]
     rows = []
     for name, src, replaces, served in table:
@@ -1172,8 +1289,9 @@ def main(argv=None) -> int:
                      "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"),
                      "bound_share": k["bound_ms"] / k["ms"]})
     print(json.dumps({"kernels": rows}))
-    if spills.get("flash_prefill.cu"):
-        raise AssertionError(f"flash_prefill spills: {spills['flash_prefill.cu']}")
+    for src in ("flash_prefill.cu", "wkv6.cu"):
+        if spills.get(src):
+            raise AssertionError(f"{src} spills: {spills[src]}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -52,8 +52,10 @@ _SIGNATURES = {
     "kv_dequantize": [_P] * 3 + [_I] * 3 + [_P],
     # log_a, b, h0, h, h_last, B, S, W, stream
     "rglru_scan_f32": [_P] * 5 + [_I] * 3 + [_P],
-    # r, k, v, w, u, s0, y, s_last, B, S, H, stream
-    "wkv6_f32": [_P] * 8 + [_I] * 3 + [_P],
+    # r, k, v, w, u, s0, y, s_last, B, S, H, chunk, cols, lane_cols, stream
+    "wkv6_f32": [_P] * 8 + [_I] * 6 + [_P],
+    # r, k, v, w, u, s0, y, s_last, B, H, stream
+    "wkv6_step_f32": [_P] * 8 + [_I] * 2 + [_P],
 }
 
 _lock = threading.Lock()
