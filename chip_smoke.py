@@ -9,6 +9,8 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --decode-sweep    # kernel phase + flash_decode over S, B
     python3 chip_smoke.py --prefill-sweep   # kernel phase + flash_prefill over n_split
     python3 chip_smoke.py --wkv-sweep       # kernel phase + wkv6 over (chunk, cols)
+    python3 chip_smoke.py --quant-sweep     # kernel phase + kv_quantize over (N, branch)
+    python3 chip_smoke.py --quant-only      # build + kv_quantize alone (any tree)
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the shapes
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -110,10 +113,11 @@ def time_ms(fn, *, iters: int = 21, flush=None):
     return statistics.median(times)
 
 
-def kernels_us(fn, flush=None, iters: int = 5, match: str = "flash_decode") -> dict:
+def kernels_us(fn, flush=None, iters: int = 5, match="flash_decode") -> dict:
     """Device time per call of each kernel ``fn`` launches whose name holds
-    ``match`` (torch.profiler), after ``flush`` as in ``time_ms`` or, without
-    one, with the inputs warm in L2 from the call before."""
+    ``match`` (one substring or a tuple of them; torch.profiler), after
+    ``flush`` as in ``time_ms`` or, without one, with the inputs warm in L2
+    from the call before."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -130,8 +134,9 @@ def kernels_us(fn, flush=None, iters: int = 5, match: str = "flash_decode") -> d
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        if match in e.key and us:
-            out[e.key.split("(")[-2].split("::")[-1]] = us / iters
+        if any(m in e.key for m in ((match,) if isinstance(match, str) else match)) and us:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            out[name.removeprefix("void ").split("::")[-1].strip()] = us / iters
     return out
 
 
@@ -214,8 +219,6 @@ def kernel_phase(dev, card: str) -> dict:
     from repro_torch.kernels.flash_decode import (_split_plan, flash_decode,
                                                   flash_decode_plain)
     from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
-    from repro_torch.kernels.kv_quant import (kv_dequantize, kv_dequantize_plain,
-                                              kv_quantize, kv_quantize_plain)
     from repro_torch.kernels.kv_restore import kv_restore_plain, kv_restore_scatter
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -395,39 +398,21 @@ def kernel_phase(dev, card: str) -> dict:
     err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
     moved = 2 * (ns * t * c * (1 + 2)) + nbytes(*scl)
     bms, by = bound(moved, 2 * ns * t * c)
+
+    def call():
+        return kv_restore_scatter(got, staged, scl, **kw)
     res["kv_restore"] = dict(
         max_abs_err=err, tol=0.0, bit_exact=exact,
-        ms=time_ms(lambda: kv_restore_scatter(got, staged, scl, **kw), flush=flush),
+        ms=time_ms(call, flush=flush),
+        kernels_us=kernels_us(call, flush, match="kv_restore"),
+        kernels_us_warm=kernels_us(call, match="kv_restore"),
         plain_ms=time_ms(lambda: kv_restore_plain(want, staged, scl, **kw), flush=flush),
         library_ms=None, bound_ms=bms, bound_by=by,
         shape=f"int8 (36,{t},{c}) x2 fields -> slots 0..{ns} of bf16 (36,{s},{c}) at t0 {t0}")
     del caches, staged, got, want, raw, got_raw, want_raw
 
-    # 4. kv_quant: one 16-token chunk of all 36 layers' K
-    x = (torch.randn(a, 1, cs, hkv, dh, generator=g, device=dev) * 3).to(bf)
-    qk, sk = kv_quantize(x)
-    qp, sp = kv_quantize_plain(x)
-    dk = kv_dequantize(qk, sk, bf)
-    dp = kv_dequantize_plain(qp, sp, bf)
-    torch.cuda.synchronize()
-    exact_q = torch.equal(qk, qp) and torch.equal(sk, sp)
-    exact_d = torch.equal(dk, dp)
-    bms, by = bound(nbytes(x, qk, sk), 3 * x.numel())
-    res["kv_quantize"] = dict(
-        max_abs_err=float((qk.float() - qp.float()).abs().max()), tol=0.0,
-        bit_exact=exact_q,
-        ms=time_ms(lambda: kv_quantize(x), flush=flush),
-        plain_ms=time_ms(lambda: kv_quantize_plain(x), flush=flush),
-        library_ms=None, bound_ms=bms, bound_by=by,
-        shape=f"x (36,1,{cs},{hkv},{dh}) bf16 -> int8 + f32 ({dh},)")
-    bms, by = bound(nbytes(qk, sk, dk), x.numel())
-    res["kv_dequantize"] = dict(
-        max_abs_err=float((dk.float() - dp.float()).abs().max()), tol=0.0,
-        bit_exact=exact_d,
-        ms=time_ms(lambda: kv_dequantize(qk, sk, bf), flush=flush),
-        plain_ms=time_ms(lambda: kv_dequantize_plain(qk, sk, bf), flush=flush),
-        library_ms=None, bound_ms=bms, bound_by=by,
-        shape=f"q (36,1,{cs},{hkv},{dh}) int8 -> bf16")
+    # 4. kv_quant
+    quant_cases(dev, g, flush, res)
 
     hybrid_kernel_cases(dev, g, flush, res)
     rwkv_kernel_cases(dev, g, flush, res)
@@ -445,6 +430,183 @@ def kernel_phase(dev, card: str) -> dict:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return res
+
+
+def quant_plan_of(x, **force):
+    """The plan ``kv_quantize`` launches for ``x`` (``force`` as
+    ``quant_plan`` takes it), and its fields to print: cluster size,
+    clusters, rows a block, branch (slab in shared memory, or re-read from
+    L2), unit, shared memory a block."""
+    from repro_torch.kernels.kv_quant import quant_plan
+    c = x.shape[-1]
+    p = quant_plan(x.numel() // c, c, x.element_size(),
+                   aligned=x.data_ptr() % 16 == 0, **force)
+    return p, dict(cluster=p.n, clusters=p.clusters, rows_per=p.rows_per,
+                   branch="slab" if p.slab else "reread", vec=p.vec, smem=p.smem)
+
+
+def quant_cases(dev, g, flush, res: dict):
+    """kv_quantize against kv_quantize_plain, bit for bit (codes and
+    scales), each case printing its plan: one 16-token chunk of qwen3-8b's
+    36 layers' K (timed), the same chunk in f32, with an all-zero channel
+    (the 1e-12 clamp), ties at scale 1 (half to even), R 5 below N, a
+    64-token bf16 chunk and a 32-token f32 chunk (both re-read), rows of 12
+    channels and an unaligned view (one element at a time), and a tail
+    chunk through ``ChunkStore._quantize``: an int8 store on the HBM tier
+    demotes tokens 32-40 of a 40-token request, a strided view of its pool
+    block.  kv_dequantize against its plain version at the serve's chunk."""
+    import torch
+    from repro_torch.kernels.kv_quant import (kv_dequantize, kv_dequantize_plain,
+                                              kv_quantize, kv_quantize_plain)
+    from repro_torch.storage import ChunkStore
+
+    bf = torch.bfloat16
+    a, cs, hkv, dh = 36, 16, 8, 128
+
+    def randn(*shape, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * 3).to(dtype)
+
+    def check(name, x):
+        q, s_ = kv_quantize(x)
+        qp, sp = kv_quantize_plain(x)
+        torch.cuda.synchronize()
+        return dict(case=name, shape=list(x.shape), dtype=str(x.dtype)[6:],
+                    bit_exact=torch.equal(q, qp) and torch.equal(s_, sp),
+                    max_abs_err=float((q.float() - qp.float()).abs().max()),
+                    scale_max_abs_err=float((s_ - sp).abs().max()), **quant_plan_of(x)[1])
+
+    x = randn(a, 1, cs, hkv, dh)
+    zero = x.clone()
+    zero[..., 5] = 0
+    ties = torch.randint(-126, 127, (a * cs * hkv, dh), generator=g, device=dev).float()
+    ties += 0.5 * (torch.rand(ties.shape, generator=g, device=dev) < 0.5)
+    ties = ties.clamp(-126.5, 126.5)
+    ties[0] = 127.0
+    buf = randn(1 + 64 * dh)
+    cases = [check("serve chunk", x), check("serve chunk f32", x.float()),
+             check("zero channel", zero), check("ties at scale 1", ties.to(bf)),
+             check("R 5 < N", randn(5, dh)), check("64 tokens", randn(a, 1, 64, hkv, dh)),
+             check("32 tokens f32", randn(a, 1, 32, hkv, dh, dtype=torch.float32)),
+             check("12 channels", randn(7, 3, 12)),
+             check("unaligned view", buf[1:].view(64, dh))]
+    # the tail chunk through the store
+    n = 40
+    k, v = randn(a, 1, n, hkv, dh), randn(a, 1, n, hkv, dh)
+    kpos = torch.arange(n, dtype=torch.int32, device=dev).expand(a, n).contiguous()
+    store = ChunkStore(chunk_size=cs, quant="int8", default_tier="hbm", device=dev)
+    key = store.put_request("tail", torch.arange(n, dtype=torch.int32)[None],
+                            {"k": k, "v": v, "kpos": kpos})[-1]
+    strided = not store.device_view(key)["k"].is_contiguous()
+    store._move(key, "hbm", "host")
+    host = store.chunks[key].reprs["host"]
+    errs, exact = [], strided
+    for f, arr in (("k", k), ("v", v)):
+        qp, sp = kv_quantize_plain(arr[:, :, 32:])
+        exact &= torch.equal(host[f]["q"], qp.cpu()) and torch.equal(host[f]["scales"], sp.cpu())
+        errs.append(float((host[f]["q"].float() - qp.cpu().float()).abs().max()))
+    cases.append(dict(case="tail chunk via ChunkStore._quantize", shape=[a, 1, n - 32, hkv, dh],
+                      dtype="bfloat16", view_strided=strided, bit_exact=exact,
+                      max_abs_err=max(errs), **quant_plan_of(k[:, :, 32:].contiguous())[1]))
+    del store, k, v, zero, ties, buf
+
+    qk, sk = kv_quantize(x)
+    dk = kv_dequantize(qk, sk, bf)
+    dp = kv_dequantize_plain(qk, sk, bf)
+    torch.cuda.synchronize()
+
+    def call():
+        return kv_quantize(x)
+    bms, by = bound(nbytes(x, qk, sk), 3 * x.numel())
+    res["kv_quantize"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in cases), tol=0.0,
+        bit_exact=all(c["bit_exact"] for c in cases), cases=cases,
+        ms=time_ms(call, flush=flush),
+        kernels_us=kernels_us(call, flush, match="kv_quantize"),
+        kernels_us_warm=kernels_us(call, match="kv_quantize"),
+        plain_ms=time_ms(lambda: kv_quantize_plain(x), flush=flush),
+        library_ms=None, bound_ms=bms, bound_by=by, **quant_plan_of(x)[1],
+        shape=f"x (36,1,{cs},{hkv},{dh}) bf16 -> int8 + f32 ({dh},)")
+
+    def call():
+        return kv_dequantize(qk, sk, bf)
+    bms, by = bound(nbytes(qk, sk, dk), x.numel())
+    res["kv_dequantize"] = dict(
+        max_abs_err=float((dk.float() - dp.float()).abs().max()), tol=0.0,
+        bit_exact=torch.equal(dk, dp),
+        ms=time_ms(call, flush=flush),
+        kernels_us=kernels_us(call, flush, match="dequant_kernel"),
+        kernels_us_warm=kernels_us(call, match="dequant_kernel"),
+        plain_ms=time_ms(lambda: kv_dequantize_plain(qk, sk, bf), flush=flush),
+        library_ms=None, bound_ms=bms, bound_by=by,
+        shape=f"q (36,1,{cs},{hkv},{dh}) int8 -> bf16")
+
+
+def quant_sweep(dev):
+    """kv_quantize at the serve's chunk (36 layers x 16 tokens) and at its
+    longest tail (10 tokens) over cluster sizes 4, 8 and 16 on both
+    branches, where the slab fits, with 1 to 16 clusters (at most 128
+    blocks): each checked against the plain version bit for bit, timed by
+    CUDA events and torch.profiler (L2 flushed)."""
+    import torch
+    from repro_torch.kernels.kv_quant import kv_quantize, kv_quantize_plain
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+    for tokens in (16, 10):
+        x = (torch.randn(36, 1, tokens, 8, 128, generator=g, device=dev) * 3).bfloat16()
+        qp, sp = kv_quantize_plain(x)
+        for n, slab, k in itertools.product((4, 8, 16), (True, False), (1, 2, 4, 8, 12, 16)):
+            if n * k > 128:
+                continue
+            try:
+                plan, fields = quant_plan_of(x, n=n, slab=slab, clusters=k)
+            except ValueError:
+                if k == 1:
+                    print(json.dumps({"quant_sweep": dict(tokens=tokens, cluster=n,
+                                                          branch="slab", fits=False)}))
+                continue
+
+            def call(plan=plan):
+                return kv_quantize(x, plan=plan)
+            q, s_ = call()
+            torch.cuda.synchronize()
+            print(json.dumps({"quant_sweep": dict(
+                tokens=tokens, **fields, bit_exact=torch.equal(q, qp) and torch.equal(s_, sp),
+                ms=time_ms(call, flush=scratch.zero_),
+                kernels_us=kernels_us(call, scratch.zero_, match="kv_quantize"),
+                kernels_us_warm=kernels_us(call, match="kv_quantize"))}))
+
+
+def quant_only(dev, card: str) -> dict:
+    """kv_quantize alone at the serve's chunk, through the wrapper's public
+    call only, so that the same script times an older tree's quantizer:
+    bit-exactness against the plain version, the call's time by CUDA events
+    and each device operation it issues (kernels and memsets) by
+    torch.profiler, L2 flushed (by a fill kernel, not a memset) and warm."""
+    import torch
+    from repro_torch.kernels.kv_quant import kv_quantize, kv_quantize_plain
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+
+    def flush():
+        scratch.fill_(7)
+    x = (torch.randn(36, 1, 16, 8, 128, generator=g, device=dev) * 3).bfloat16()
+    q, s_ = kv_quantize(x)
+    qp, sp = kv_quantize_plain(x)
+    torch.cuda.synchronize()
+
+    def call():
+        return kv_quantize(x)
+    match = ("quant", "absmax", "Memset")
+    out = dict(card=card, bit_exact=torch.equal(q, qp) and torch.equal(s_, sp),
+               ms=time_ms(call, flush=flush), kernels_us=kernels_us(call, flush, match=match),
+               kernels_us_warm=kernels_us(call, match=match),
+               shape="x (36,1,16,8,128) bf16")
+    print(json.dumps({"quant_only": out}))
+    if not out["bit_exact"]:
+        raise AssertionError("kv_quantize disagrees with its plain version")
+    return out
 
 
 def ring_kpos(s: int, q_pos: int, dev):
@@ -588,7 +750,7 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
     del q, k, v, v2, qt, kt, vt, mask
 
     # rglru_scan at every S of the serve: 256 (a restoration chunk, timed),
-    # 512 (a layer-wise pass), 64 (suffix prefill), 1 (decode, timed);
+    # 512 (a layer-wise pass), 64 (suffix prefill, timed), 1 (decode, timed);
     # log_a in [-0.5, 0) as the gates give, h0 != 0
     w = 2560
     cases, timed = [], {}
@@ -601,17 +763,22 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
         torch.cuda.synchronize()
         cases.append(dict(S=sl, max_abs_err=max(err(h, hp), err(hl, hlp)),
                           bit_exact=torch.equal(h, hp) and torch.equal(hl, hlp)))
-        if sl in (256, 1):
+        if sl != 512:
             bms, by = bound(nbytes(la, bb, h0, h, hl), 3 * la.numel(), F32_FLOP_PER_S)
+
+            def call():
+                return rglru_scan(la, bb, h0)
             timed[sl] = dict(
-                ms=time_ms(lambda: rglru_scan(la, bb, h0), flush=flush),
+                ms=time_ms(call, flush=flush),
+                kernels_us=kernels_us(call, flush, match="rglru_scan"),
+                kernels_us_warm=kernels_us(call, match="rglru_scan"),
                 plain_ms=time_ms(lambda: rglru_scan_plain(la, bb, h0), flush=flush,
                                  iters=7),
                 bound_ms=bms, bound_by=by)
     res["rglru_scan"] = dict(
         max_abs_err=max(c["max_abs_err"] for c in cases), tol=RGLRU_TOL,
         bit_exact=all(c["bit_exact"] for c in cases), cases=cases,
-        **timed[256], library_ms=None, s1=timed[1],
+        **timed[256], library_ms=None, s64=timed[64], s1=timed[1],
         shape=f"log_a, b (1,256,{w}) f32, h0 (1,{w}) f32")
 
 
@@ -860,10 +1027,12 @@ def counters():
 
 
 def zero_counters():
+    from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_scan import wkv6
     for w, attr in counters().values():
         setattr(w, attr, 0)
     wkv6.launches_by_len.clear()
+    rglru_scan.launches_by_len.clear()
 
 
 def read_counters() -> dict:
@@ -876,8 +1045,8 @@ def read_counters() -> dict:
 
 
 # substrings of the port's CUDA kernel names in a profiler trace
-PORT_KERNEL_NAMES = ("flash_prefill", "flash_decode", "kv_restore", "absmax_kernel",
-                     "quant_kernel", "rglru_scan", "wkv6")
+PORT_KERNEL_NAMES = ("flash_prefill", "flash_decode", "kv_restore", "kv_quantize",
+                     "dequant_kernel", "rglru_scan", "wkv6")
 
 
 def profile_serve(serve) -> dict:
@@ -1003,6 +1172,7 @@ def hybrid_serve_phase(dev, card: str, profile: bool = False) -> dict:
     the RG-LRU conv/lru state of every restored cache."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.models import Model
     from repro_torch.serving import RealServingEngine, Request
 
@@ -1030,6 +1200,8 @@ def hybrid_serve_phase(dev, card: str, profile: bool = False) -> dict:
     torch.cuda.reset_peak_memory_stats()
     eng, reqs, rep, serve_s = serve()
     launches = read_counters()
+    by_len = dict(sorted(rglru_scan.launches_by_len.items()))
+    print(json.dumps({"hybrid_rglru_scan_launches_by_S": by_len}))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if profile:
         print(json.dumps({"hybrid_profile": profile_serve(serve)}))
@@ -1056,7 +1228,8 @@ def hybrid_serve_phase(dev, card: str, profile: bool = False) -> dict:
         peak_mem_gb=peak_gb, stats=rep.stats, compute_busy=rep.compute_busy,
         io_busy=rep.io_busy, decode_busy=rep.decode_busy,
         overlap_decode_restore=rep.overlap_decode_restore, ttfts=rep.ttfts,
-        restore_secs=rep.restore_secs, requests=out, launches=launches)
+        restore_secs=rep.restore_secs, requests=out, launches=launches,
+        rglru_scan_launches_by_S=by_len)
     print(json.dumps({"hybrid_serve": result}, default=str))
     if bad:
         raise AssertionError(f"bad outputs (logits shape/finite, token count, "
@@ -1206,6 +1379,12 @@ def main(argv=None) -> int:
     ap.add_argument("--wkv-sweep", action="store_true",
                     help="after the kernel checks, time the chunked wkv6 kernel at "
                          "every variant it is built for; skip the serves")
+    ap.add_argument("--quant-sweep", action="store_true",
+                    help="after the kernel checks, time kv_quantize over cluster "
+                         "sizes 4, 8, 16 on both branches; skip the serves")
+    ap.add_argument("--quant-only", action="store_true",
+                    help="build, then check and time kv_quantize alone at the serve's "
+                         "chunk through its public call (runs on older trees too)")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)   # lines survive a kill
 
@@ -1231,6 +1410,9 @@ def main(argv=None) -> int:
             print(line.strip())
     spills = ptxas_spills(log)
     print(json.dumps({"ptxas_spills": spills}))
+    if args.quant_only:
+        quant_only(dev, card)
+        return 0
 
     t0 = time.perf_counter()
     kres = kernel_phase(dev, card)
@@ -1242,8 +1424,10 @@ def main(argv=None) -> int:
         prefill_sweep(dev)
     if args.wkv_sweep:
         wkv_sweep(dev)
+    if args.quant_sweep:
+        quant_sweep(dev)
     if not (args.kernels_only or args.decode_sweep or args.prefill_sweep
-            or args.wkv_sweep):
+            or args.wkv_sweep or args.quant_sweep):
         sres = serve_phase(dev, card, args.profile)
         # the engine and executor hold each other: collect the cycle so the
         # next path's peak memory does not count the last path's leftovers
@@ -1287,9 +1471,12 @@ def main(argv=None) -> int:
                      "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
                      "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
                      "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"),
-                     "bound_share": k["bound_ms"] / k["ms"]})
+                     "bound_share": k["bound_ms"] / k["ms"],
+                     **{x: k[x] for x in ("kernels_us", "cluster", "branch") if x in k}})
+        if name == "rglru_scan" and served:
+            rows[-1]["launches_by_S"] = served["rglru_scan_launches_by_S"]
     print(json.dumps({"kernels": rows}))
-    for src in ("flash_prefill.cu", "wkv6.cu"):
+    for src in ("flash_prefill.cu", "wkv6.cu", "kv_quant.cu"):
         if spills.get(src):
             raise AssertionError(f"{src} spills: {spills[src]}")
     print(json.dumps({"ok": True, "device": {

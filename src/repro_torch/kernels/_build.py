@@ -46,8 +46,8 @@ _SIGNATURES = {
     # nf, caches*, staged*, scales*, chans*, S, T, t0, slot_lo, n_slots,
     # rows, cs, dtype, stream
     "kv_restore": [_I, _P, _P, _P, _P] + [_I] * 8 + [_P],
-    # x, amax, q, scales, R, C, dtype, stream
-    "kv_quantize": [_P] * 4 + [_I] * 3 + [_P],
+    # x, q, scales, R, C, dtype, n, clusters, rows_per, slab, vec, stream
+    "kv_quantize": [_P] * 3 + [_I] * 8 + [_P],
     # q, scales, out, R, C, dtype, stream
     "kv_dequantize": [_P] * 3 + [_I] * 3 + [_P],
     # log_a, b, h0, h, h_last, B, S, W, stream

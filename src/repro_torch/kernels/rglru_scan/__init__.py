@@ -3,6 +3,8 @@
 interface ``(log_a, b, h0) -> (h, h_last)``."""
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.kernels import _build
@@ -41,7 +43,9 @@ def rglru_scan(log_a, b, h0):
         h_last.data_ptr(), bsz, s, w, _build.stream_of(log_a))
     _build.check_launch("rglru_scan", rc)
     rglru_scan.launches += 1
+    rglru_scan.launches_by_len[s] += 1
     return h, h_last
 
 
 rglru_scan.launches = 0
+rglru_scan.launches_by_len = collections.Counter()   # launches by S

@@ -260,12 +260,13 @@ class ChunkStore:
 
     def _quantize(self, raw: dict) -> dict:
         """Encode on the DEVICE (the kv_quant kernel), then copy the int8
-        codes and scales to the host."""
+        codes and scales to the host.  A tail chunk demoted from HBM is a
+        strided view of its pool block: the kernel takes it contiguous."""
         out = {"kpos": self._to_host(raw["kpos"])}
         for f, arr in raw.items():
             if f == "kpos":
                 continue
-            q, scales = kv_quantize(arr.to(self.device))
+            q, scales = kv_quantize(arr.to(self.device).contiguous())
             out[f] = {"q": self._to_host(q), "scales": self._to_host(scales)}
             self.max_scale = max(self.max_scale, float(out[f]["scales"].max()))
         return out
