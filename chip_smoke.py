@@ -10,6 +10,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --prefill-sweep   # kernel phase + flash_prefill over n_split
     python3 chip_smoke.py --wkv-sweep       # kernel phase + wkv6 over (chunk, cols)
     python3 chip_smoke.py --quant-sweep     # kernel phase + kv_quantize over (N, branch)
+    python3 chip_smoke.py --rglru-sweep     # kernel phase + rglru_scan over (C, T, stages)
     python3 chip_smoke.py --quant-only      # build + kv_quantize alone (any tree)
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
@@ -626,7 +627,6 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
     from repro_torch.kernels.flash_decode import (_split_plan, flash_decode,
                                                   flash_decode_plain)
     from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
-    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
 
     hq, hkv, dh, s, win = 10, 1, 256, 2048, 2048
     scale = dh ** -0.5
@@ -749,24 +749,64 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
         shape=f"q (1,{hq},{dh}) over a {s}-slot ring at position {qp}, window {win}, bf16")
     del q, k, v, v2, qt, kt, vt, mask
 
-    # rglru_scan at every S of the serve: 256 (a restoration chunk, timed),
-    # 512 (a layer-wise pass), 64 (suffix prefill, timed), 1 (decode, timed);
-    # log_a in [-0.5, 0) as the gates give, h0 != 0
-    w = 2560
-    cases, timed = [], {}
-    for sl in (256, 512, 64, 1):
-        la = -0.5 * torch.rand(1, sl, w, generator=g, device=dev)
-        bb = torch.randn(1, sl, w, generator=g, device=dev)
-        h0 = torch.randn(1, w, generator=g, device=dev)
+    rglru_cases(dev, g, flush, res)
+
+
+def rglru_inputs(g, dev, bsz: int, sl: int, w: int = 2560, offset: int = 0):
+    """log_a in [-0.5, 0) as the gates give, b and h0 ~ N(0, 1), f32; with
+    ``offset`` each tensor is a contiguous view that many elements into its
+    storage (4 bytes off 16-byte alignment at offset 1)."""
+    import torch
+
+    def draw(fn, *shape):
+        n = 1
+        for d in shape:
+            n *= d
+        return fn(n + offset, generator=g, device=dev)[offset:].view(*shape)
+    return (-0.5 * draw(torch.rand, bsz, sl, w), draw(torch.randn, bsz, sl, w),
+            draw(torch.randn, bsz, w))
+
+
+def rglru_plan_of(la, bb, h0) -> dict:
+    """The plan ``rglru_scan`` launches for these inputs (its outputs are
+    fresh allocations, 16-byte aligned), as a dict to print."""
+    from repro_torch.kernels.rglru_scan import rglru_plan
+    bsz, sl, w = la.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (la, bb, h0))
+    return rglru_plan(bsz, sl, w, aligned)._asdict()
+
+
+def rglru_cases(dev, g, flush, res: dict):
+    """rglru_scan's two kernels against the plain version by torch.equal (h
+    and h_last), each case printing its plan: S = 256 (a restoration chunk,
+    timed), 512 (a layer-wise pass), 64 (suffix prefill, timed), 40 and 300
+    (a ragged last tile), 2, and 1 (decode: the one-step kernel, timed), at
+    B = 1 and 2 over W = 2560; then W = 2558 (a ragged strip, 4-byte copies)
+    and inputs 4 bytes off 16-byte alignment; then one call over 512 steps
+    against two chained calls over 256."""
+    import torch
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+
+    def case(la, bb, h0, **extra):
         h, hl = rglru_scan(la, bb, h0)
         hp, hlp = rglru_scan_plain(la, bb, h0)
         torch.cuda.synchronize()
-        cases.append(dict(S=sl, max_abs_err=max(err(h, hp), err(hl, hlp)),
-                          bit_exact=torch.equal(h, hp) and torch.equal(hl, hlp)))
-        if sl != 512:
+        err = max(float((h - hp).abs().max()), float((hl - hlp).abs().max()))
+        return dict(B=la.shape[0], S=la.shape[1], W=la.shape[2], **extra,
+                    plan=rglru_plan_of(la, bb, h0), max_abs_err=err,
+                    bit_exact=torch.equal(h, hp) and torch.equal(hl, hlp),
+                    h_last_apart=hl.untyped_storage().data_ptr()
+                    != h.untyped_storage().data_ptr())
+
+    cases, timed = [], {}
+    for bsz, sl in itertools.product((1, 2), (256, 512, 64, 40, 2, 1, 300)):
+        la, bb, h0 = rglru_inputs(g, dev, bsz, sl)
+        cases.append(case(la, bb, h0))
+        if bsz == 1 and sl in (256, 64, 1):
+            h, hl = rglru_scan(la, bb, h0)
             bms, by = bound(nbytes(la, bb, h0, h, hl), 3 * la.numel(), F32_FLOP_PER_S)
 
-            def call():
+            def call(la=la, bb=bb, h0=h0):
                 return rglru_scan(la, bb, h0)
             timed[sl] = dict(
                 ms=time_ms(call, flush=flush),
@@ -774,12 +814,77 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
                 kernels_us_warm=kernels_us(call, match="rglru_scan"),
                 plain_ms=time_ms(lambda: rglru_scan_plain(la, bb, h0), flush=flush,
                                  iters=7),
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, plan=rglru_plan_of(la, bb, h0))
+    for bsz, sl, w, off in ((2, 256, 2558, 0), (2, 1, 2558, 0), (1, 64, 2560, 1),
+                            (1, 1, 2560, 1)):
+        cases.append(case(*rglru_inputs(g, dev, bsz, sl, w, off), offset_bytes=4 * off))
+    for bsz in (1, 2):
+        la, bb, h0 = rglru_inputs(g, dev, bsz, 512)
+        h, hl = rglru_scan(la, bb, h0)
+        h1, mid = rglru_scan(la[:, :256].contiguous(), bb[:, :256].contiguous(), h0)
+        h2, hl2 = rglru_scan(la[:, 256:].contiguous(), bb[:, 256:].contiguous(), mid)
+        torch.cuda.synchronize()
+        cases.append(dict(B=bsz, S=512, chained="256 + 256",
+                          bit_exact=torch.equal(h, torch.cat([h1, h2], dim=1))
+                          and torch.equal(hl, hl2),
+                          max_abs_err=float((h - torch.cat([h1, h2], dim=1)).abs().max())))
+    tile = [c for c in cases if c.get("plan", {}).get("kernel") != "step"]
+    step = [c for c in cases if c.get("plan", {}).get("kernel") == "step"]
+    w = 2560
     res["rglru_scan"] = dict(
-        max_abs_err=max(c["max_abs_err"] for c in cases), tol=RGLRU_TOL,
-        bit_exact=all(c["bit_exact"] for c in cases), cases=cases,
-        **timed[256], library_ms=None, s64=timed[64], s1=timed[1],
+        max_abs_err=max(c["max_abs_err"] for c in tile), tol=RGLRU_TOL,
+        bit_exact=all(c["bit_exact"] for c in tile)
+        and all(c["h_last_apart"] for c in tile if "h_last_apart" in c),
+        cases=tile, **timed[256], library_ms=None, s64=timed[64],
         shape=f"log_a, b (1,256,{w}) f32, h0 (1,{w}) f32")
+    res["rglru_scan_step"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in step), tol=RGLRU_TOL,
+        bit_exact=all(c["bit_exact"] and c["h_last_apart"] for c in step),
+        cases=step, **timed[1], library_ms=None,
+        shape=f"log_a, b (1,1,{w}) f32, h0 (1,{w}) f32")
+
+
+def rglru_sweep(dev):
+    """The tiled rglru_scan kernel at every variant it is built for
+    (channels a strip, steps a tile, ring stages), and the one-step kernel:
+    each checked against the plain version by torch.equal, then timed (CUDA
+    events, L2 flushed) at S = 256, 64 and 1 (B = 1) and S = 256 at B = 2,
+    with its own device time by torch.profiler at B = 1.  The tiled kernel
+    runs at S = 1 as well, to show what the one-step kernel saves."""
+    import torch
+    from repro_torch.kernels.rglru_scan import TILE_VARIANTS, rglru_scan, rglru_scan_plain
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+
+    def flush():
+        scratch.zero_()
+
+    shapes = ((1, 256), (1, 64), (1, 1), (2, 256))
+    ins = {bs: rglru_inputs(g, dev, *bs) for bs in shapes}
+    want = {bs: rglru_scan_plain(*ins[bs]) for bs in shapes}
+    builds = [dict(kernel="step")] + [dict(variant=v) for v in TILE_VARIANTS]
+    bad = []
+    for force in builds:
+        kw = {} if "kernel" in force else force
+        row = dict(force)
+        for bs in shapes:
+            if "kernel" in force and bs[1] != 1:
+                continue
+            h, hl = rglru_scan(*ins[bs], **kw)
+            torch.cuda.synchronize()
+            exact = torch.equal(h, want[bs][0]) and torch.equal(hl, want[bs][1])
+            if not exact:
+                bad.append((force, bs))
+            tag = f"{bs[1]}" if bs[0] == 1 else f"{bs[1]}_b{bs[0]}"
+            row[f"bit_exact_{tag}"] = exact
+            row[f"ms_{tag}"] = time_ms(lambda bs=bs: rglru_scan(*ins[bs], **kw), flush=flush)
+            if bs[0] == 1:
+                row[f"kernels_us_{tag}"] = kernels_us(
+                    lambda bs=bs: rglru_scan(*ins[bs], **kw), flush, match="rglru_scan")
+        print(json.dumps({"rglru_sweep": row}))
+    if bad:
+        raise AssertionError(f"rglru_scan builds disagree with the plain version: {bad}")
 
 
 def rwkv_kernel_cases(dev, g, flush, res: dict):
@@ -1003,7 +1108,7 @@ def prefill_sweep(dev):
 # no chunk store (its loads copy the ground-truth payload)
 QWEN3_KERNELS = ("flash_prefill", "flash_decode", "kv_restore", "kv_quantize",
                  "kv_dequantize")
-HYBRID_KERNELS = ("rglru_scan", "flash_prefill", "flash_decode")
+HYBRID_KERNELS = ("rglru_scan", "rglru_scan_step", "flash_prefill", "flash_decode")
 # rwkv6-7b is attention-free and takes no chunk store: only the two wkv6
 # kernels may launch (chunked for prefill and recompute, one step for decode)
 RWKV_KERNELS = ("wkv6", "wkv6_step")
@@ -1023,6 +1128,7 @@ def counters():
             "kv_quantize": (kv_quantize, "launches"),
             "kv_dequantize": (kv_dequantize, "launches"),
             "rglru_scan": (rglru_scan, "launches"),
+            "rglru_scan_step": (rglru_scan, "step_launches"),
             "wkv6": (wkv6, "launches"), "wkv6_step": (wkv6, "step_launches")}
 
 
@@ -1037,10 +1143,11 @@ def zero_counters():
 
 def read_counters() -> dict:
     """Launches of each kernel since ``zero_counters``.  ``wkv6.launches``
-    counts both wkv6 kernels: the chunked kernel's are those less the one-step
-    kernel's."""
+    and ``rglru_scan.launches`` count both kernels of their wrapper: the
+    chunked (tiled) kernel's are those less the one-step kernel's."""
     out = {n: getattr(w, attr) for n, (w, attr) in counters().items()}
     out["wkv6"] -= out["wkv6_step"]
+    out["rglru_scan"] -= out["rglru_scan_step"]
     return out
 
 
@@ -1382,6 +1489,9 @@ def main(argv=None) -> int:
     ap.add_argument("--quant-sweep", action="store_true",
                     help="after the kernel checks, time kv_quantize over cluster "
                          "sizes 4, 8, 16 on both branches; skip the serves")
+    ap.add_argument("--rglru-sweep", action="store_true",
+                    help="after the kernel checks, check and time rglru_scan at every "
+                         "(C, T, stages) it is built for; skip the serves")
     ap.add_argument("--quant-only", action="store_true",
                     help="build, then check and time kv_quantize alone at the serve's "
                          "chunk through its public call (runs on older trees too)")
@@ -1426,8 +1536,10 @@ def main(argv=None) -> int:
         wkv_sweep(dev)
     if args.quant_sweep:
         quant_sweep(dev)
+    if args.rglru_sweep:
+        rglru_sweep(dev)
     if not (args.kernels_only or args.decode_sweep or args.prefill_sweep
-            or args.wkv_sweep or args.quant_sweep):
+            or args.wkv_sweep or args.quant_sweep or args.rglru_sweep):
         sres = serve_phase(dev, card, args.profile)
         # the engine and executor hold each other: collect the cycle so the
         # next path's peak memory does not count the last path's leftovers
@@ -1455,6 +1567,8 @@ def main(argv=None) -> int:
              ("flash_decode_dh256", *fd, hres),
              ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan/kernel.py:49", hres),
+             ("rglru_scan_step", "src/repro_torch/csrc/rglru_scan.cu",
+              "src/repro/kernels/rglru_scan/kernel.py:49", hres),
              ("wkv6", "src/repro_torch/csrc/wkv6.cu",
               "src/repro/kernels/rwkv6_scan/kernel.py:56", rres),
              ("wkv6_step", "src/repro_torch/csrc/wkv6.cu",
@@ -1472,11 +1586,11 @@ def main(argv=None) -> int:
                      "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
                      "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"),
                      "bound_share": k["bound_ms"] / k["ms"],
-                     **{x: k[x] for x in ("kernels_us", "cluster", "branch") if x in k}})
+                     **{x: k[x] for x in ("kernels_us", "cluster", "branch", "plan") if x in k}})
         if name == "rglru_scan" and served:
             rows[-1]["launches_by_S"] = served["rglru_scan_launches_by_S"]
     print(json.dumps({"kernels": rows}))
-    for src in ("flash_prefill.cu", "wkv6.cu", "kv_quant.cu"):
+    for src in ("flash_prefill.cu", "wkv6.cu", "kv_quant.cu", "rglru_scan.cu"):
         if spills.get(src):
             raise AssertionError(f"{src} spills: {spills[src]}")
     print(json.dumps({"ok": True, "device": {

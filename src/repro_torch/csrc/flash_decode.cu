@@ -48,6 +48,7 @@
 //    main path pays nothing for them.
 // Left for later: one launch with a "last block combines" counter,
 // mma.sync for the scores, thread block clusters.
+#include "async_copy.cuh"
 #include "common.cuh"
 
 namespace {
@@ -60,29 +61,6 @@ constexpr int FD_STAGES = 2;    // depth of the cp.async ring
 // reading 8 rows hit 8 bank groups
 template <int DH>
 __host__ __device__ constexpr int fd_row() { return DH + 8; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = full ? 16 : 0;  // src-size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = full ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ bool visible(int kp, int q_pos, int window) {
   return kp >= 0 && kp <= q_pos && (window <= 0 || kp > q_pos - window);

@@ -56,6 +56,7 @@
 //    stale slots, empty slots) — and walks the live tiles only.
 // Ragged Sq and S are masked in the kernel: no padding copies.  Left for
 // later: TMA, warp specialisation, persistent blocks.
+#include "async_copy.cuh"
 #include "common.cuh"
 
 namespace {
@@ -73,31 +74,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
-  const int n = full ? 16 : 0;  // src-size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool full) {
-  const int n = full ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // --- wgmma (sm_90a): a warpgroup's asynchronous 64-row products ---------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -109,16 +85,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
-// this thread's writes to shared memory (cp.async included) seen by the
-// async proxy that wgmma reads its operands through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // matrix descriptor of a 128-byte-swizzled operand in shared memory: start
 // address, leading and stride byte offsets (16-byte units), layout 1 = B128
 __device__ __forceinline__ uint64_t sw128_desc(const void* p, int lbo, int sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
@@ -212,7 +183,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   using L = Layout<DH>;
   constexpr int NWG = L::NWG, NT = L::NT, STAGES = L::STAGES, BK = FP_BK, CH = DH / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* Ks = smem;
   unsigned char* Vs = smem + L::v_off;
   unsigned char* Qs = smem + L::q_off;

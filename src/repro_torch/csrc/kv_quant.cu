@@ -55,6 +55,7 @@
 // to different integers only when y lies within that of a half-integer: a
 // unit with such an element (an exact tie among them) is redone with
 // __fdiv_rn, the clip and rintf, as the plain version computes it.
+#include "async_copy.cuh"
 #include "common.cuh"
 
 namespace {
@@ -78,43 +79,6 @@ __host__ __device__ inline Layout layout(int C, long slab_bytes) {
   L.slab = (L.mbar + 8L * STAGES + 127) / 128 * 128;
   L.total = L.slab + slab_bytes;
   return L;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(1)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_u32(b)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(b)) : "memory");
-}
-
-// Wait for phase 0 of a barrier.  A copy that never lands would hang the
-// card: after ~2^22 polls the kernel traps instead, and the launch fails.
-__device__ __forceinline__ void mbar_wait0(uint64_t* b) {
-  for (int spins = 0;; ++spins) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(b)), "r"(0) : "memory");
-    if (done) return;
-    if (spins > (1 << 22)) __trap();
-  }
 }
 
 // release / acquire at cluster scope (the defaults); not .aligned, since
@@ -296,8 +260,8 @@ kv_quantize_cluster(const T* __restrict__ x, int8_t* __restrict__ q,
 
   for (int c = tid; c < C; c += NT) amax_s[c] = 0u;
   if (SLAB && tid == 0) {
-    for (int s = 0; s < STAGES; ++s) mbar_init(&mbar[s]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < STAGES; ++s) mbar_init(&mbar[s], 1);
+    mbar_fence_init();
   }
   __syncthreads();
   if (SLAB && tid == 0) {
@@ -314,7 +278,7 @@ kv_quantize_cluster(const T* __restrict__ x, int8_t* __restrict__ q,
     AbsMax<T, VEC, !SLAB> acc;
     if (active) {
       for (int s = 0, a = 0; a < rows; ++s, a += stage_rows) {
-        if (SLAB) mbar_wait0(&mbar[s]);
+        if (SLAB) mbar_wait(&mbar[s], 0);
         const int b = min(rows, a + stage_rows);
 #pragma unroll 2
         for (int rr = a + rl; rr < b; rr += rl_n) acc.add(src + (long)rr * C + u * VEC);

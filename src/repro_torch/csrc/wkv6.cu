@@ -52,6 +52,7 @@
 // Invariance: a chunk's arithmetic depends only on its own inputs and
 // S_in, and chunks start at the call's first step, so one pass equals
 // chained calls whose boundaries are multiples of C, bit for bit.
+#include "async_copy.cuh"
 #include "common.cuh"
 
 namespace {
@@ -61,22 +62,6 @@ constexpr int SC = 16;           // state columns a block of the one-step kernel
 constexpr int SNT = DH * SC / 4; // its threads: one float4 of state each
 constexpr int NT = 256;          // threads a block of the chunked kernel
 constexpr int PD = 2;            // chunks its copies run ahead
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = full ? 16 : 0;  // src-size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);

@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_OPTIN = 232448          # shared memory an H100 block may opt into (bytes)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,8 +51,10 @@ _SIGNATURES = {
     "kv_quantize": [_P] * 3 + [_I] * 8 + [_P],
     # q, scales, out, R, C, dtype, stream
     "kv_dequantize": [_P] * 3 + [_I] * 3 + [_P],
-    # log_a, b, h0, h, h_last, B, S, W, stream
-    "rglru_scan_f32": [_P] * 5 + [_I] * 3 + [_P],
+    # log_a, b, h0, h, h_last, B, S, W, C, T, stages, vec, stream
+    "rglru_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
+    # log_a, b, h0, h, h_last, n, vec, stream
+    "rglru_scan_step_f32": [_P] * 5 + [_I] * 2 + [_P],
     # r, k, v, w, u, s0, y, s_last, B, S, H, chunk, cols, lane_cols, stream
     "wkv6_f32": [_P] * 8 + [_I] * 6 + [_P],
     # r, k, v, w, u, s0, y, s_last, B, H, stream

@@ -22,7 +22,7 @@ from repro_torch.kernels import _build
 # csrc/kv_quant.cu's constants
 NT = 512                     # threads a block
 STAGES = 4                   # bulk copies (and mbarriers) a slab is cut into
-SMEM_OPTIN = 232448          # shared memory an H100 block may opt into (bytes)
+SMEM_OPTIN = _build.SMEM_OPTIN
 CLUSTER = 8                  # blocks a cluster: the portable size, the default
 MAX_CLUSTER = 16             # the non-portable size an H100 schedules
 # Clusters a launch, and blocks a launch, at most: 12 clusters of 8 were
