@@ -12,6 +12,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --quant-sweep     # kernel phase + kv_quantize over (N, branch)
     python3 chip_smoke.py --rglru-sweep     # kernel phase + rglru_scan over (C, T, stages)
     python3 chip_smoke.py --quant-only      # build + kv_quantize alone (any tree)
+    python3 chip_smoke.py --promote-profile # build + a traced qwen3 serve's promotion (any tree)
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the shapes
@@ -33,6 +34,7 @@ Any failure raises (exit code != 0).  Imports nothing of JAX or ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import itertools
 import json
@@ -220,7 +222,6 @@ def kernel_phase(dev, card: str) -> dict:
     from repro_torch.kernels.flash_decode import (_split_plan, flash_decode,
                                                   flash_decode_plain)
     from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
-    from repro_torch.kernels.kv_restore import kv_restore_plain, kv_restore_scatter
 
     g = torch.Generator(device=dev).manual_seed(1)
     hq, hkv, dh, s = 32, 8, 128, 4096
@@ -378,39 +379,8 @@ def kernel_phase(dev, card: str) -> dict:
         shape=f"q (1,{hq},{dh}) over {s} slots, bf16")
     del q, k, v, qt, kt, vt
 
-    # 3. kv_restore: one int8 load op of 256 tokens x 18 slots (stage 0 of 2)
-    a, t, t0, cs, ns, c = 36, 256, 1024, 16, 18, hkv * dh
-    caches = [torch.randn(a, s, c, generator=g, device=dev).to(bf) for _ in range(2)]
-    staged = [torch.randint(-127, 128, (a, t, c), generator=g, device=dev,
-                            dtype=torch.int8) for _ in range(2)]
-    scl = [torch.rand(t // cs, c, generator=g, device=dev) * 0.05 for _ in range(2)]
-    kw = dict(t0=t0, slot_lo=0, n_slots=ns, chunk_size=cs)
-    got = [x.clone() for x in caches]
-    want = [x.clone() for x in caches]
-    kv_restore_scatter(got, staged, scl, **kw)
-    kv_restore_plain(want, staged, scl, **kw)
-    raw = [x.to(bf) for x in staged]
-    got_raw = [x.clone() for x in caches]
-    want_raw = [x.clone() for x in caches]
-    kv_restore_scatter(got_raw, raw, None, **kw)
-    kv_restore_plain(want_raw, raw, None, **kw)
-    torch.cuda.synchronize()
-    exact = all(torch.equal(x, y) for x, y in zip(got + got_raw, want + want_raw))
-    err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
-    moved = 2 * (ns * t * c * (1 + 2)) + nbytes(*scl)
-    bms, by = bound(moved, 2 * ns * t * c)
-
-    def call():
-        return kv_restore_scatter(got, staged, scl, **kw)
-    res["kv_restore"] = dict(
-        max_abs_err=err, tol=0.0, bit_exact=exact,
-        ms=time_ms(call, flush=flush),
-        kernels_us=kernels_us(call, flush, match="kv_restore"),
-        kernels_us_warm=kernels_us(call, match="kv_restore"),
-        plain_ms=time_ms(lambda: kv_restore_plain(want, staged, scl, **kw), flush=flush),
-        library_ms=None, bound_ms=bms, bound_by=by,
-        shape=f"int8 (36,{t},{c}) x2 fields -> slots 0..{ns} of bf16 (36,{s},{c}) at t0 {t0}")
-    del caches, staged, got, want, raw, got_raw, want_raw
+    # 3. kv_restore
+    restore_cases(dev, g, flush, res)
 
     # 4. kv_quant
     quant_cases(dev, g, flush, res)
@@ -431,6 +401,103 @@ def kernel_phase(dev, card: str) -> dict:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return res
+
+
+def rows_plan_fields(p) -> dict:
+    """The fields of a dequant_rows plan to print: channels a unit (16, or 1
+    for the scalar instance), rows a thread, grid."""
+    return dict(unit=p.unit, rows_a_thread=p.rpt, grid=list(p.grid))
+
+
+def restore_cases(dev, g, flush, res: dict):
+    """kv_restore against kv_restore_plain by torch.equal, each case printing
+    its plan: the serve's load op (int8, 2 fields x 18 of 36 slots x 256
+    tokens at C 1024 into bf16 caches of 4096 slots from t0 1024, 16-token
+    chunks; timed), its raw copy in bf16 (timed, beside one ``copy_`` a
+    field) and in f32, int8 into f32 caches, a ragged last chunk (40 rows),
+    rows < T (t0 100 below S: the prefix's tail past S dropped), C 1000 and a
+    staging view 4 bytes off alignment (both the scalar instance)."""
+    import torch
+    from repro_torch.kernels.kv_restore import (kv_restore_plain, kv_restore_plan,
+                                                kv_restore_scatter)
+
+    bf = torch.bfloat16
+    a, s, c, cs, ns, t0 = 36, 4096, 1024, 16, 18, 1024
+
+    def inputs(t, c=c, dtype=bf, quant=True, offset=0):
+        caches = [torch.randn(a, s, c, generator=g, device=dev).to(dtype) for _ in range(2)]
+        if not quant:
+            return caches, [torch.randn(a, t, c, generator=g, device=dev).to(dtype)
+                            for _ in range(2)], None
+        staged = [torch.randint(-127, 128, (offset + a * t * c,), generator=g, device=dev,
+                                dtype=torch.int8)[offset:].view(a, t, c) for _ in range(2)]
+        scl = [torch.rand(-(-t // cs), c, generator=g, device=dev) * 0.05 for _ in range(2)]
+        return caches, staged, scl
+
+    def check(name, caches, staged, scl, t0=t0):
+        kw = dict(t0=t0, slot_lo=0, n_slots=ns, chunk_size=cs)
+        got = [x.clone() for x in caches]
+        want = [x.clone() for x in caches]
+        kv_restore_scatter(got, staged, scl, **kw)
+        kv_restore_plain(want, staged, scl, **kw)
+        torch.cuda.synchronize()
+        out = dict(case=name, staged=list(staged[0].shape), dtype=str(caches[0].dtype)[6:],
+                   int8=scl is not None, t0=t0, rows=min(staged[0].shape[1], s - t0),
+                   bit_exact=all(torch.equal(x, y) for x, y in zip(got, want)),
+                   max_abs_err=max(float((x.float() - y.float()).abs().max())
+                                   for x, y in zip(got, want)),
+                   **rows_plan_fields(kv_restore_plan(got, staged, scl, **kw)))
+        print(json.dumps({"kv_restore_case": out}))
+        return out
+
+    def timing(caches, staged, scl, moved):
+        kw = dict(t0=t0, slot_lo=0, n_slots=ns, chunk_size=cs)
+        t = staged[0].shape[1]
+
+        def call():
+            return kv_restore_scatter(caches, staged, scl, **kw)
+        bms, by = bound(moved, 0 if scl is None else 2 * ns * t * c)
+        return dict(ms=time_ms(call, flush=flush),
+                    kernels_us=kernels_us(call, flush, match="kv_restore"),
+                    kernels_us_warm=kernels_us(call, match="kv_restore"),
+                    plain_ms=time_ms(lambda: kv_restore_plain(caches, staged, scl, **kw),
+                                     flush=flush),
+                    bound_ms=bms, bound_by=by,
+                    **rows_plan_fields(kv_restore_plan(caches, staged, scl, **kw)))
+
+    cases = []
+    caches, staged, scl = inputs(256)
+    cases.append(check("serve op", caches, staged, scl))
+    t = timing(caches, staged, scl, 2 * (ns * 256 * c * (1 + 2)) + nbytes(*scl))
+    res["kv_restore"] = dict(max_abs_err=0.0, tol=0.0, bit_exact=True, cases=cases, **t,
+                             library_ms=None,
+                             shape=f"int8 (36,256,{c}) x2 fields -> slots 0..{ns} of bf16 "
+                                   f"(36,{s},{c}) at t0 {t0}")
+    raw_cases = []
+    for dtype in (bf, torch.float32):
+        caches, staged, _ = inputs(256, dtype=dtype, quant=False)
+        raw_cases.append(check(f"raw {str(dtype)[6:]}", caches, staged, None))
+        if dtype == bf:
+            t = timing(caches, staged, None, 2 * ns * 256 * c * 4)
+            res["kv_restore_raw"] = dict(
+                max_abs_err=0.0, tol=0.0, bit_exact=True, cases=raw_cases, **t,
+                library_ms=time_ms(lambda: [x[:ns, t0:t0 + 256].copy_(y[:ns])
+                                            for x, y in zip(caches, staged)], flush=flush),
+                library="Tensor.copy_ a field",
+                shape=f"bf16 (36,256,{c}) x2 fields -> slots 0..{ns} of bf16 (36,{s},{c}) "
+                      f"at t0 {t0}")
+        del caches, staged
+    cases.append(check("int8 -> f32", *inputs(64, dtype=torch.float32)))
+    cases.append(check("ragged last chunk", *inputs(40)))
+    cases.append(check("rows < T", *inputs(256), t0=s - 100))
+    cases.append(check("C 1000 (scalar)", *inputs(64, c=1000)))
+    cases.append(check("staging 4 bytes off (scalar)", *inputs(64, offset=4)))
+    for r in (res["kv_restore"], res["kv_restore_raw"]):
+        r["max_abs_err"] = max(x["max_abs_err"] for x in r["cases"])
+        r["bit_exact"] = all(x["bit_exact"] for x in r["cases"])
+    units = [x["unit"] for x in cases]
+    if units[-2:] != [1, 1] or set(units[:-2]) != {16}:
+        raise AssertionError(f"kv_restore: unexpected units {units}")
 
 
 def quant_plan_of(x, **force):
@@ -455,10 +522,10 @@ def quant_cases(dev, g, flush, res: dict):
     channels and an unaligned view (one element at a time), and a tail
     chunk through ``ChunkStore._quantize``: an int8 store on the HBM tier
     demotes tokens 32-40 of a 40-token request, a strided view of its pool
-    block.  kv_dequantize against its plain version at the serve's chunk."""
+    block.  Then kv_dequantize's cases (``dequant_cases``) on the serve's
+    chunk's codes."""
     import torch
-    from repro_torch.kernels.kv_quant import (kv_dequantize, kv_dequantize_plain,
-                                              kv_quantize, kv_quantize_plain)
+    from repro_torch.kernels.kv_quant import kv_quantize, kv_quantize_plain
     from repro_torch.storage import ChunkStore
 
     bf = torch.bfloat16
@@ -511,8 +578,6 @@ def quant_cases(dev, g, flush, res: dict):
     del store, k, v, zero, ties, buf
 
     qk, sk = kv_quantize(x)
-    dk = kv_dequantize(qk, sk, bf)
-    dp = kv_dequantize_plain(qk, sk, bf)
     torch.cuda.synchronize()
 
     def call():
@@ -528,18 +593,108 @@ def quant_cases(dev, g, flush, res: dict):
         library_ms=None, bound_ms=bms, bound_by=by, **quant_plan_of(x)[1],
         shape=f"x (36,1,{cs},{hkv},{dh}) bf16 -> int8 + f32 ({dh},)")
 
+    dequant_cases(dev, g, flush, res, x, qk, sk)
+
+
+def dequant_cases(dev, g, flush, res: dict, x, qk, sk):
+    """kv_dequantize against kv_dequantize_plain by torch.equal, each case
+    printing its plan.  One chunk, as the store decodes it: codes (36, 1,
+    16, 8, 128) of ``x`` with (128,) scales, to bf16 (timed) and f32.  A
+    transfer run as the datapath promotes it: 36 slots x 8 chunks x 16
+    tokens x 1024 channels x 2 fields with (8, 1024) per-chunk scales, every
+    chunk of the output against a plain call on that chunk's codes and
+    scales (timed; beside it the per-chunk form the datapath replaced:
+    ``.contiguous()`` of each chunk's columns and a one-chunk call, a chunk
+    and a field), then the run with a 10-token last chunk (strided views),
+    C 1000 and a staging view 4 bytes off alignment (the scalar instance)."""
+    import torch
+    from repro_torch.kernels.kv_quant import (kv_dequantize, kv_dequantize_plain,
+                                              kv_dequantize_plan)
+
+    bf = torch.bfloat16
+    a, cs, n = 36, 16, 8
+
+    def one(name, dtype):
+        got, want = kv_dequantize(qk, sk, dtype), kv_dequantize_plain(qk, sk, dtype)
+        torch.cuda.synchronize()
+        out = dict(case=name, q=list(qk.shape), dtype=str(dtype)[6:],
+                   bit_exact=torch.equal(got, want),
+                   max_abs_err=float((got.float() - want.float()).abs().max()),
+                   **rows_plan_fields(kv_dequantize_plan(qk, sk, dtype)))
+        print(json.dumps({"kv_dequantize_case": out}))
+        return out
+
+    def run_inputs(c=1024, t=n * cs, offset=0):
+        q = [torch.randint(-127, 128, (offset + a * n * cs * c,), generator=g, device=dev,
+                           dtype=torch.int8)[offset:].view(a, n * cs, c)[:, :t]
+             for _ in range(2)]
+        scl = [torch.rand(-(-t // cs), c, generator=g, device=dev) * 0.05 for _ in range(2)]
+        return q, scl
+
+    def run(name, q, scl):
+        t = q[0].shape[1]
+        got = kv_dequantize(q, scl, bf, chunk_size=cs)
+        exact, err = True, 0.0
+        for chunks, x, s in zip(got, q, scl):
+            exact &= len(chunks) == s.shape[0]
+            for ch, o in enumerate(chunks):
+                part = slice(ch * cs, min(t, (ch + 1) * cs))
+                want = kv_dequantize_plain(x[:, part].contiguous(), s[ch], bf)
+                exact &= torch.equal(o, want)
+                err = max(err, float((o.float() - want.float()).abs().max()))
+        torch.cuda.synchronize()
+        out = dict(case=name, q=list(q[0].shape), fields=len(q), contiguous=q[0].is_contiguous(),
+                   bit_exact=exact, max_abs_err=err,
+                   **rows_plan_fields(kv_dequantize_plan(q, scl, bf, chunk_size=cs)))
+        print(json.dumps({"kv_dequantize_case": out}))
+        return out
+
+    cases = [one("one chunk", bf), one("one chunk f32", torch.float32)]
+    dk = kv_dequantize(qk, sk, bf)
+
     def call():
         return kv_dequantize(qk, sk, bf)
     bms, by = bound(nbytes(qk, sk, dk), x.numel())
     res["kv_dequantize"] = dict(
-        max_abs_err=float((dk.float() - dp.float()).abs().max()), tol=0.0,
-        bit_exact=torch.equal(dk, dp),
+        max_abs_err=max(c["max_abs_err"] for c in cases), tol=0.0,
+        bit_exact=all(c["bit_exact"] for c in cases), cases=cases,
         ms=time_ms(call, flush=flush),
-        kernels_us=kernels_us(call, flush, match="dequant_kernel"),
-        kernels_us_warm=kernels_us(call, match="dequant_kernel"),
+        kernels_us=kernels_us(call, flush, match="kv_dequantize"),
+        kernels_us_warm=kernels_us(call, match="kv_dequantize"),
         plain_ms=time_ms(lambda: kv_dequantize_plain(qk, sk, bf), flush=flush),
         library_ms=None, bound_ms=bms, bound_by=by,
-        shape=f"q (36,1,{cs},{hkv},{dh}) int8 -> bf16")
+        **rows_plan_fields(kv_dequantize_plan(qk, sk, bf)),
+        shape="q (36,1,16,8,128) int8, scales (128,) -> bf16")
+
+    q, scl = run_inputs()
+    rcases = [run("run of 8 chunks", q, scl)]
+
+    def call():
+        return kv_dequantize(q, scl, bf, chunk_size=cs)
+
+    def per_chunk():
+        for x, s in zip(q, scl):
+            for ch in range(n):
+                kv_dequantize(x[:, ch * cs:(ch + 1) * cs].contiguous(), s[ch], bf)
+    bms, by = bound(nbytes(*q, *scl) + 2 * q[0].numel() * 2, 2 * q[0].numel())
+    timed = dict(ms=time_ms(call, flush=flush),
+                 kernels_us=kernels_us(call, flush, match="kv_dequantize"),
+                 kernels_us_warm=kernels_us(call, match="kv_dequantize"),
+                 plain_ms=time_ms(lambda: kv_dequantize_plain(q, scl, bf, chunk_size=cs),
+                                  flush=flush),
+                 per_chunk_ms=time_ms(per_chunk, flush=flush))
+    rcases.append(run("10-token last chunk (strided)", *run_inputs(t=(n - 1) * cs + 10)))
+    rcases.append(run("C 1000 (scalar)", *run_inputs(c=1000)))
+    rcases.append(run("staging 4 bytes off (scalar)", *run_inputs(offset=4)))
+    res["kv_dequantize_run"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in rcases), tol=0.0,
+        bit_exact=all(c["bit_exact"] for c in rcases), cases=rcases, **timed,
+        library_ms=None, bound_ms=bms, bound_by=by,
+        **rows_plan_fields(kv_dequantize_plan(q, scl, bf, chunk_size=cs)),
+        shape=f"2 fields of q (36,{n * cs},1024) int8, scales ({n},1024) -> bf16")
+    units = [c["unit"] for c in cases + rcases]
+    if units != [16, 16, 16, 16, 1, 1]:
+        raise AssertionError(f"kv_dequantize: unexpected units {units}")
 
 
 def quant_sweep(dev):
@@ -1127,6 +1282,7 @@ def counters():
             "kv_restore": (kv_restore_scatter, "launches"),
             "kv_quantize": (kv_quantize, "launches"),
             "kv_dequantize": (kv_dequantize, "launches"),
+            "kv_dequantize_run": (kv_dequantize, "run_launches"),
             "rglru_scan": (rglru_scan, "launches"),
             "rglru_scan_step": (rglru_scan, "step_launches"),
             "wkv6": (wkv6, "launches"), "wkv6_step": (wkv6, "step_launches")}
@@ -1144,8 +1300,12 @@ def zero_counters():
 def read_counters() -> dict:
     """Launches of each kernel since ``zero_counters``.  ``wkv6.launches``
     and ``rglru_scan.launches`` count both kernels of their wrapper: the
-    chunked (tiled) kernel's are those less the one-step kernel's."""
+    chunked (tiled) kernel's are those less the one-step kernel's.
+    ``kv_dequantize`` counts both of its forms; ``kv_dequantize_run`` the run
+    form alone (the datapath's promotions), and ``kv_dequantize_chunk`` the
+    one-chunk form (``ChunkStore._decode_device``)."""
     out = {n: getattr(w, attr) for n, (w, attr) in counters().items()}
+    out["kv_dequantize_chunk"] = out["kv_dequantize"] - out["kv_dequantize_run"]
     out["wkv6"] -= out["wkv6_step"]
     out["rglru_scan"] -= out["rglru_scan_step"]
     return out
@@ -1153,53 +1313,93 @@ def read_counters() -> dict:
 
 # substrings of the port's CUDA kernel names in a profiler trace
 PORT_KERNEL_NAMES = ("flash_prefill", "flash_decode", "kv_restore", "kv_quantize",
-                     "dequant_kernel", "rglru_scan", "wkv6")
+                     "kv_dequantize", "rglru_scan", "wkv6")
+# record_function ranges of a traced qwen3 serve: the kernels each launched
+# (the datapath's promotion of transfer runs, and within it the pool's copies)
+PROMOTE_RANGES = ("promote_run", "promote_staged")
 
 
-def profile_serve(serve) -> dict:
+@contextlib.contextmanager
+def promote_ranges():
+    """RestoreDatapath._promote_run and ChunkStore.promote_staged run inside
+    record_function ranges named as PROMOTE_RANGES."""
+    from torch.profiler import record_function
+
+    from repro_torch.core.datapath import RestoreDatapath
+    from repro_torch.storage import ChunkStore
+
+    run_sm, staged_fn = RestoreDatapath.__dict__["_promote_run"], ChunkStore.promote_staged
+
+    def promote_run(*args, **kw):
+        with record_function(PROMOTE_RANGES[0]):
+            return run_sm.__func__(*args, **kw)
+
+    def promote_staged(self, *args, **kw):
+        with record_function(PROMOTE_RANGES[1]):
+            return staged_fn(self, *args, **kw)
+    RestoreDatapath._promote_run = staticmethod(promote_run)
+    ChunkStore.promote_staged = promote_staged
+    try:
+        yield
+    finally:
+        RestoreDatapath._promote_run = run_sm
+        ChunkStore.promote_staged = staged_fn
+
+
+def profile_serve(serve, ranges=(), names=PORT_KERNEL_NAMES) -> dict:
     """One more serve (``serve()``) under torch.profiler: device time by
-    kernel (the 15 largest, and every one of the port's own kernels) and the
-    share of the traced wall time the device spent in kernels and copies
-    (summed over streams).  Separate from the timed runs: tracing slows the
-    host."""
+    kernel (the 15 largest, and every one of the port's own kernels, those
+    whose names hold one of ``names``) and the share of the traced wall time
+    the device spent in kernels and copies (summed over streams); for each
+    record_function range in ``ranges``, its calls and the device time of
+    the kernels and copies launched inside it.  Separate from the timed
+    runs: tracing slows the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e, own):
+        us = getattr(e, ("self_" if own else "") + "device_time_total", None)
+        return us if us is not None else getattr(e, ("self_" if own else "") + "cuda_time_total", 0)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         serve()
         wall = time.perf_counter() - t0
-    rows = []
+    rows, spans = [], {}
     for e in prof.key_averages():
+        if e.key in ranges:
+            if "CUDA" not in str(getattr(e, "device_type", "")):
+                spans[e.key] = dict(calls=e.count, device_ms=device_us(e, False) / 1e3)
+            continue
         if "CUDA" not in str(getattr(e, "device_type", "")):
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        rows.append((us, e.count, e.key[:80]))
+        rows.append((device_us(e, True), e.count, e.key[:80]))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     return dict(traced_wall_s=wall, device_s=busy,
                 device_share=busy / wall if wall else None,
                 top=[dict(name=n, calls=c, device_ms=us / 1e3) for us, c, n in rows[:15]],
                 port_kernels=[dict(name=n, calls=c, device_ms=us / 1e3) for us, c, n in rows
-                              if any(m in n for m in PORT_KERNEL_NAMES)])
+                              if any(m in n for m in names)],
+                ranges=spans)
 
 
-def serve_phase(dev, card: str, profile: bool = False) -> dict:
+def qwen3_server(dev):
+    """qwen3-8b at full width and depth with random bf16 weights from seed 0,
+    and ``serve(quant)``: four requests (prefixes 512-4096, 64 new tokens, 16
+    output tokens each) through RealServingEngine from a ChunkStore of that
+    quantization on the host tier, verify on; returns (engine, store,
+    requests, report, seconds).  Only interfaces older trees share, so that
+    ``--promote-profile`` runs there too."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import ChunkStore, RealServingEngine, Request
 
     cfg = get_config("qwen3-8b")
-    t0 = time.perf_counter()
     model = Model(cfg, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
                   device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = model.num_params(params)
 
     def serve(quant):
         store = ChunkStore(chunk_size=16, quant=quant, default_tier="host", device=dev)
@@ -1212,6 +1412,27 @@ def serve_phase(dev, card: str, profile: bool = False) -> dict:
         rep = eng.serve(reqs, verify=True)
         torch.cuda.synchronize()
         return eng, store, reqs, rep, time.perf_counter() - t0
+    return cfg, model, params, serve
+
+
+def first_difference(a: dict, b: dict):
+    """(request, step) of the first greedy token two serves disagree on, or
+    None."""
+    for rid in a:
+        for step, (x, y) in enumerate(itertools.zip_longest(a[rid], b.get(rid, []))):
+            if x != y:
+                return [rid, step]
+    return None
+
+
+def serve_phase(dev, card: str, profile: bool = False) -> dict:
+    import torch
+
+    t0 = time.perf_counter()
+    cfg, model, params, serve = qwen3_server(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model.num_params(params)
 
     # the main path: every launch counter from 0 just before, read just after
     zero_counters()
@@ -1220,11 +1441,23 @@ def serve_phase(dev, card: str, profile: bool = False) -> dict:
     launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the same requests from an unquantized store: loads are then raw copies,
-    # so verify's error is the recompute path's own (token- vs layer-wise)
+    # so verify's error is the recompute path's own (token- vs layer-wise).
+    # Served twice: whether its greedy tokens hold from serve to serve
+    # (printed, not asserted: decode batches vary with measured op times)
     eng_raw, _, _, _, raw_s = serve("none")
     recompute_err = eng_raw.executor.verify_errs
+    tokens_none = {r.request_id: eng_raw.executor.outputs(r.request_id)["tokens"]
+                   for r in reqs}
+    del eng_raw
+    eng_raw, _, _, _, _ = serve("none")
+    tokens_again = {r.request_id: eng_raw.executor.outputs(r.request_id)["tokens"]
+                    for r in reqs}
+    del eng_raw
+    diff = first_difference(tokens_none, tokens_again)
     if profile:
-        print(json.dumps({"profile": profile_serve(lambda: serve("int8"))}))
+        with promote_ranges():
+            print(json.dumps({"profile": profile_serve(lambda: serve("int8"),
+                                                       ranges=PROMOTE_RANGES)}))
 
     ex = eng.executor
     strategies = {r.request_id: ex._live[r.request_id]["plans"][0].strategy
@@ -1251,6 +1484,9 @@ def serve_phase(dev, card: str, profile: bool = False) -> dict:
         io_busy=rep.io_busy, decode_busy=rep.decode_busy,
         overlap_decode_restore=rep.overlap_decode_restore,
         ttfts=rep.ttfts, restore_secs=rep.restore_secs,
+        verify_within_max_scale=max(v for r in out.values()
+                                    for v in r["verify_max_err"].values()) <= store.max_scale,
+        tokens_none=tokens_none, tokens_stable=diff is None, tokens_first_difference=diff,
         datapath=dict(ops=dp.ops, runs=dp.runs, kernel_launches=dp.kernel_launches,
                       resident_copies=dp.resident_copies,
                       bandwidth_gbps=[b / 1e9 if b else None for b in dp.bandwidths()],
@@ -1263,12 +1499,41 @@ def serve_phase(dev, card: str, profile: bool = False) -> dict:
     print(json.dumps({"serve": result}, default=str))
     if bad:
         raise AssertionError(f"bad outputs (logits shape/finite, token count): {bad}")
+    # raw copies restore the unquantized store's bytes: nothing but 0 verifies
+    none_err = max(v for r in out.values() for v in r["verify_max_err_none"].values())
+    if none_err != 0:
+        raise AssertionError(f"unquantized serve verifies to {none_err}, not 0")
     missing = [n for n in QWEN3_KERNELS if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels not launched during serve: {missing}")
+    # one run-form kv_dequantize for each transfer run the datapath promoted
+    if launches["kv_dequantize_run"] != dp.kernel_launches:
+        raise AssertionError(f"kv_dequantize run launches {launches['kv_dequantize_run']} "
+                             f"!= transfer runs {dp.kernel_launches}")
     if sorted(set(strategies.values())) != ["layer", "token"]:
         raise AssertionError(f"expected layer- and token-wise plans: {strategies}")
     return result
+
+
+def promote_profile(dev, card: str) -> dict:
+    """qwen3-8b's int8 serve once untraced, then once traced with the
+    datapath's promotion inside PROMOTE_RANGES: the device time of what
+    ``_promote_run`` launches (its dequantize launches and copies, and the
+    pool's block writes under ``promote_staged``) and of each port kernel.
+    Uses only what older trees share, so the script copied into an older
+    checkout measures that tree the same way.  ``dequant_kernel`` is the
+    one-chunk dequantize kernel's name before it shared dequant_rows.cuh."""
+    import torch
+    _, _, _, serve = qwen3_server(dev)
+    serve("int8")
+    with promote_ranges():
+        prof = profile_serve(lambda: serve("int8"), ranges=PROMOTE_RANGES,
+                             names=PORT_KERNEL_NAMES + ("dequant_kernel",))
+    torch.cuda.synchronize()
+    out = dict(card=card, **{k: prof[k] for k in ("traced_wall_s", "device_s", "device_share",
+                                                   "port_kernels", "ranges")})
+    print(json.dumps({"promote_profile": out}))
+    return out
 
 
 def hybrid_serve_phase(dev, card: str, profile: bool = False) -> dict:
@@ -1492,6 +1757,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rglru-sweep", action="store_true",
                     help="after the kernel checks, check and time rglru_scan at every "
                          "(C, T, stages) it is built for; skip the serves")
+    ap.add_argument("--promote-profile", action="store_true",
+                    help="build, then trace one qwen3 int8 serve and print the device "
+                         "time of the datapath's promotion (runs on older trees too)")
     ap.add_argument("--quant-only", action="store_true",
                     help="build, then check and time kv_quantize alone at the serve's "
                          "chunk through its public call (runs on older trees too)")
@@ -1522,6 +1790,9 @@ def main(argv=None) -> int:
     print(json.dumps({"ptxas_spills": spills}))
     if args.quant_only:
         quant_only(dev, card)
+        return 0
+    if args.promote_profile:
+        promote_profile(dev, card)
         return 0
 
     t0 = time.perf_counter()
@@ -1555,14 +1826,14 @@ def main(argv=None) -> int:
           "src/repro/kernels/flash_prefill/kernel.py:81")
     fd = ("src/repro_torch/csrc/flash_decode.cu",
           "src/repro/kernels/flash_decode/kernel.py:69")
+    kr = ("src/repro_torch/csrc/kv_restore.cu", "src/repro/kernels/kv_restore/kernel.py:55")
+    kd = ("src/repro_torch/csrc/kv_quant.cu", "src/repro/kernels/kv_quant/kernel.py:84")
     table = [("flash_prefill", *fp, sres), ("flash_prefill_suffix", *fp, sres),
              ("flash_decode", *fd, sres),
-             ("kv_restore", "src/repro_torch/csrc/kv_restore.cu",
-              "src/repro/kernels/kv_restore/kernel.py:55", sres),
+             ("kv_restore", *kr, sres), ("kv_restore_raw", *kr, sres),
              ("kv_quantize", "src/repro_torch/csrc/kv_quant.cu",
               "src/repro/kernels/kv_quant/kernel.py:54", sres),
-             ("kv_dequantize", "src/repro_torch/csrc/kv_quant.cu",
-              "src/repro/kernels/kv_quant/kernel.py:84", sres),
+             ("kv_dequantize", *kd, sres), ("kv_dequantize_run", *kd, sres),
              ("flash_prefill_dh256", *fp, hres), ("flash_prefill_dh256_suffix", *fp, hres),
              ("flash_decode_dh256", *fd, hres),
              ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
@@ -1576,8 +1847,9 @@ def main(argv=None) -> int:
     rows = []
     for name, src, replaces, served in table:
         k = kres[name]
-        # the suffix entries time the same wrapper: its count covers both
-        counter = name.replace("_dh256", "").replace("_suffix", "")
+        # the suffix and raw entries time the same wrapper: its count covers
+        # both (kv_dequantize_run counts the run form apart)
+        counter = name.replace("_dh256", "").replace("_suffix", "").replace("_raw", "")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": served["launches"][counter] if served else None,
@@ -1586,11 +1858,12 @@ def main(argv=None) -> int:
                      "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
                      "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"),
                      "bound_share": k["bound_ms"] / k["ms"],
-                     **{x: k[x] for x in ("kernels_us", "cluster", "branch", "plan") if x in k}})
+                     **{x: k[x] for x in ("kernels_us", "cluster", "branch", "plan", "unit",
+                                          "rows_a_thread") if x in k}})
         if name == "rglru_scan" and served:
             rows[-1]["launches_by_S"] = served["rglru_scan_launches_by_S"]
     print(json.dumps({"kernels": rows}))
-    for src in ("flash_prefill.cu", "wkv6.cu", "kv_quant.cu", "rglru_scan.cu"):
+    for src in ("flash_prefill.cu", "wkv6.cu", "kv_quant.cu", "kv_restore.cu", "rglru_scan.cu"):
         if spills.get(src):
             raise AssertionError(f"{src} spills: {spills[src]}")
     print(json.dumps({"ok": True, "device": {

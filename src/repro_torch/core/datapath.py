@@ -26,7 +26,8 @@ restoration as ``(layer-span, token-range)`` I/O units over
     views and go through the same kernel as a raw copy.  Each transferred
     chunk then lands its pool block via ``ChunkStore.promote_staged`` —
     built from the bytes already on device, so nothing crosses the wire
-    twice.
+    twice: an int8 run's blocks come from one ``kv_dequantize`` launch
+    over the run.
 
 On the CPU (tests) there are no streams: a put is a plain copy.
 
@@ -272,18 +273,26 @@ class RestoreDatapath:
     def _promote_run(run, fields, cache, staged, scales_dev, kpos_dev,
                      store):
         """Land each transferred chunk's pool block from the staged device
-        bytes (dequantized on device by the kv_quant kernel, bit-identically
-        to the scatter's math) — the store's HBM promote then consumes
-        these instead of a second host→device copy."""
-        r0 = run[0][0]
+        bytes — the store's HBM promote then consumes these instead of a
+        second host→device copy.  An int8 run is dequantized on device by
+        ONE kv_dequantize launch over the run's rows of every field (the
+        staging columns taken as strided views, per-chunk scales, the
+        scatter's math bit for bit), which writes each chunk as the
+        contiguous block the pool copies; each chunk's payload is that
+        block, trimmed to the chunk's tokens."""
+        r0, r1 = run[0][0], run[-1][1]
         a = cache["kpos"].shape[0]
+        chunks = None
+        if scales_dev is not None:
+            chunks = kv_dequantize([staged[f][:, :r1 - r0] for f in fields],
+                                   [scales_dev[f] for f in fields],
+                                   dtype=cache[fields[0]].dtype,
+                                   chunk_size=store.chunk_size)
         for idx, (c0, c1, _form, _pay, key) in enumerate(run):
             off, n = c0 - r0, c1 - c0
             dev = {"kpos": kpos_dev[:, off:off + n]}
-            for f in fields:
-                sl = staged[f][:, off:off + n]
-                if scales_dev is not None:
-                    sl = kv_dequantize(sl.contiguous(), scales_dev[f][idx],
-                                       dtype=cache[f].dtype)
+            for i, f in enumerate(fields):
+                sl = (staged[f][:, off:off + n] if chunks is None
+                      else chunks[i][idx])
                 dev[f] = sl.reshape((a, 1, n) + cache[f].shape[3:])
             store.promote_staged(key, dev)

@@ -55,8 +55,16 @@
 // to different integers only when y lies within that of a half-integer: a
 // unit with such an element (an exact tie among them) is redone with
 // __fdiv_rn, the clip and rintf, as the plain version computes it.
+//
+// Dequantize (kv_dequantize_kernel) is the decode routine of
+// dequant_rows.cuh, shared with kv_restore.cu, writing a fresh buffer.  It
+// takes a transfer run: (A, T, C) int8 staging views of every field, rows
+// contiguous at any slot stride, with per-chunk scales (ceil(T / cs), C),
+// in one launch, and writes each chunk as the contiguous (A, cs, C) block
+// the pool copies; the 2D form above is one chunk (A = 1, T = R).
 #include "async_copy.cuh"
 #include "common.cuh"
+#include "dequant_rows.cuh"
 
 namespace {
 
@@ -391,14 +399,16 @@ int quantize(const void* x, void* q, void* scales, int R, int C, int n, int clus
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
-               T* __restrict__ out, long n, int C) {
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x)
-    out[i] = from_f32<T>((float)q[i] * scales[i % C]);
+template <typename T, bool QUANT, int UNIT>
+__global__ void __launch_bounds__(dqr::NT, dqr::MIN_BLOCKS)
+kv_dequantize_kernel(const dqr::RowsArgs a) {
+  dqr::dequant_rows<T, QUANT, UNIT>(a);
 }
+
+struct DequantKernels {
+  template <typename T, bool QUANT, int UNIT>
+  static auto get() { return kv_dequantize_kernel<T, QUANT, UNIT>; }
+};
 
 }  // namespace
 
@@ -421,19 +431,28 @@ extern "C" int kv_quantize(const void* x, void* q, void* scales, int R, int C, i
   return (int)cudaErrorInvalidValue;
 }
 
-// q (R, C) int8, scales (C,) f32 -> out (R, C) of `dtype`.
-extern "C" int kv_dequantize(const void* q, const void* scales, void* out,
-                             int R, int C, int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const long n = (long)R * C;
-  const int blocks = ceil_div(n, 256 * 4) < 1 ? 1 : ceil_div(n, 256 * 4);
-  if (dtype == DT_BF16)
-    dequant_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
-        (const int8_t*)q, (const float*)scales, (__nv_bfloat16*)out, n, C);
-  else if (dtype == DT_F32)
-    dequant_kernel<float><<<blocks, 256, 0, s>>>(
-        (const int8_t*)q, (const float*)scales, (float*)out, n, C);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+// q[f] (A, T, chans[f]) int8, rows contiguous, slot stride q_ss[f]
+// (elements); scales[f] (ceil(T / cs), chans[f]) f32 -> out[f]
+// (ceil(T / cs), A, cs, chans[f]) of `dtype`, contiguous, chunk-major (rows
+// past T of the last chunk are not written): every field of a run in one
+// launch.  The single-chunk form (R, C) with (C,) scales is A = 1, T = R,
+// cs = R.
+extern "C" int kv_dequantize(int nf, void* const* outs, const void* const* q,
+                             const void* const* scales, const int* chans,
+                             const long long* q_ss, int A, int T, int cs, int dtype,
+                             void* stream) {
+  if (nf < 1 || nf > dqr::MAXF) return (int)cudaErrorInvalidValue;
+  dqr::RowsArgs a = {};
+  for (int f = 0; f < nf; ++f) {
+    a.out[f] = outs[f];
+    a.in[f] = q[f];
+    a.scales[f] = static_cast<const float*>(scales[f]);
+    a.out_ss[f] = (long long)cs * chans[f];             // chunk-major output
+    a.out_cs[f] = (long long)A * cs * chans[f];
+    a.in_ss[f] = q_ss[f];
+    a.chans[f] = chans[f];
+  }
+  a.rows = T;
+  a.cs = cs;
+  return dqr::launch<DequantKernels, true>(a, nf, A, dtype, (cudaStream_t)stream);
 }

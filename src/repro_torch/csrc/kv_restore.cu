@@ -18,62 +18,24 @@
 //
 // What bounds it on the H100: no arithmetic to speak of, so device-memory
 // bytes: a 256-token x 18-slot op reads 9.4 MB of int8 and writes 18.9 MB
-// of bf16, 8.5 us at 3.35 TB/s.  Design: a grid-stride elementwise pass
-// with neighbouring threads on neighbouring channels (coalesced reads and
-// writes), one grid plane per (field, slot) so the kernel computes only
-// in-row offsets.  Simple first: one element per thread step (no vector
-// loads yet).
-#include "common.cuh"
+// of bf16, 8.5 us at 3.35 TB/s.  The body is the decode routine of
+// dequant_rows.cuh (16 channels a thread by 16-byte accesses, a chunk's
+// scales held in registers, several rows' loads in flight), shared with
+// kv_dequantize; the output is the cache at row t0.
+#include "dequant_rows.cuh"
 
 namespace {
 
-constexpr int MAXF = 4;
+template <typename T, bool QUANT, int UNIT>
+__global__ void __launch_bounds__(dqr::NT, dqr::MIN_BLOCKS)
+kv_restore_kernel(const dqr::RowsArgs a) {
+  dqr::dequant_rows<T, QUANT, UNIT>(a);
+}
 
-struct RestoreArgs {
-  void* cache[MAXF];
-  const void* staged[MAXF];
-  const float* scales[MAXF];
-  int chans[MAXF];
-  int n_slots, S, T, t0, slot_lo, rows, cs;
+struct RestoreKernels {
+  template <typename T, bool QUANT, int UNIT>
+  static auto get() { return kv_restore_kernel<T, QUANT, UNIT>; }
 };
-
-// grid (blocks over rows x C, n_slots, n_fields)
-template <typename T, bool QUANT>
-__global__ void __launch_bounds__(256) kv_restore_kernel(RestoreArgs a) {
-  const int f = blockIdx.z;
-  const int slot = a.slot_lo + blockIdx.y;
-  const int C = a.chans[f];
-  const long n = (long)a.rows * C;
-  T* cache = static_cast<T*>(a.cache[f]) + ((long)slot * a.S + a.t0) * C;
-  const long src0 = (long)slot * a.T * C;
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x) {
-    if constexpr (QUANT) {
-      const int r = (int)(i / C), c = (int)(i % C);
-      const float s = a.scales[f][(long)(r / a.cs) * C + c];
-      const float x = (float)static_cast<const int8_t*>(a.staged[f])[src0 + i];
-      cache[i] = from_f32<T>(x * s);
-    } else {
-      cache[i] = static_cast<const T*>(a.staged[f])[src0 + i];
-    }
-  }
-}
-
-template <typename T>
-int launch(const RestoreArgs& a, int nf, bool quant, cudaStream_t stream) {
-  long n = 1;
-  for (int f = 0; f < nf; ++f) {
-    const long nf_el = (long)a.rows * a.chans[f];
-    n = n > nf_el ? n : nf_el;
-  }
-  // ~4 elements per thread: grid-stride covers the rest
-  dim3 grid(ceil_div(n, 256 * 4), a.n_slots, nf);
-  if (quant)
-    kv_restore_kernel<T, true><<<grid, 256, 0, stream>>>(a);
-  else
-    kv_restore_kernel<T, false><<<grid, 256, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
 
 }  // namespace
 
@@ -85,24 +47,23 @@ extern "C" int kv_restore(int nf, void* const* caches, const void* const* staged
                           const void* const* scales, const int* chans, int S,
                           int T, int t0, int slot_lo, int n_slots, int rows,
                           int cs, int dtype, void* stream) {
-  if (nf < 1 || nf > MAXF) return (int)cudaErrorInvalidValue;
-  RestoreArgs a;
+  if (nf < 1 || nf > dqr::MAXF) return (int)cudaErrorInvalidValue;
   const bool quant = scales != nullptr;
-  for (int f = 0; f < MAXF; ++f) {
-    a.cache[f] = f < nf ? caches[f] : nullptr;
-    a.staged[f] = f < nf ? staged[f] : nullptr;
-    a.scales[f] = quant && f < nf ? static_cast<const float*>(scales[f]) : nullptr;
-    a.chans[f] = f < nf ? chans[f] : 0;
+  const long esz = dtype == DT_BF16 ? 2 : 4;
+  dqr::RowsArgs a = {};
+  for (int f = 0; f < nf; ++f) {
+    a.out[f] = static_cast<char*>(caches[f]) + (long)t0 * chans[f] * esz;
+    a.in[f] = staged[f];
+    a.scales[f] = quant ? static_cast<const float*>(scales[f]) : nullptr;
+    a.out_ss[f] = (long long)S * chans[f];
+    a.out_cs[f] = (long long)cs * chans[f];             // the cache's rows in order
+    a.in_ss[f] = (long long)T * chans[f];
+    a.chans[f] = chans[f];
   }
-  a.n_slots = n_slots;
-  a.S = S;
-  a.T = T;
-  a.t0 = t0;
   a.slot_lo = slot_lo;
   a.rows = rows;
   a.cs = cs;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DT_BF16) return launch<__nv_bfloat16>(a, nf, quant, s);
-  if (dtype == DT_F32) return launch<float>(a, nf, quant, s);
-  return (int)cudaErrorInvalidValue;
+  return quant ? dqr::launch<RestoreKernels, true>(a, nf, n_slots, dtype, s)
+               : dqr::launch<RestoreKernels, false>(a, nf, n_slots, dtype, s);
 }

@@ -49,8 +49,8 @@ _SIGNATURES = {
     "kv_restore": [_I, _P, _P, _P, _P] + [_I] * 8 + [_P],
     # x, q, scales, R, C, dtype, n, clusters, rows_per, slab, vec, stream
     "kv_quantize": [_P] * 3 + [_I] * 8 + [_P],
-    # q, scales, out, R, C, dtype, stream
-    "kv_dequantize": [_P] * 3 + [_I] * 3 + [_P],
+    # nf, outs*, q*, scales*, chans*, q slot strides*, A, T, cs, dtype, stream
+    "kv_dequantize": [_I] + [_P] * 5 + [_I] * 4 + [_P],
     # log_a, b, h0, h, h_last, B, S, W, C, T, stages, vec, stream
     "rglru_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
     # log_a, b, h0, h, h_last, n, vec, stream
@@ -148,12 +148,13 @@ def check_launch(name: str, rc: int):
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
 
 
-def require_cuda(name: str, *tensors: torch.Tensor):
-    """The kernel takes contiguous tensors on one CUDA device."""
+def require_cuda(name: str, *tensors: torch.Tensor, contiguous: bool = True):
+    """The kernel takes (contiguous, unless told otherwise) tensors on one
+    CUDA device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: tensors must share one CUDA device "
                              f"(got {t.device} and {dev})")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

@@ -2,7 +2,9 @@
 
 Channel = the LAST axis; each channel's scale is the absmax over every other
 axis, ``max(absmax, 1e-12) / 127``, and ``q = clip(round_half_even(x / s),
--127, 127)`` by a true divide.  Dequantize is one f32 multiply and one cast.
+-127, 127)`` by a true divide.  Dequantize is one f32 multiply and one cast;
+its kernel is the decode routine ``csrc/dequant_rows.cuh`` shares with
+``kv_restore``, and takes every field of a transfer run in one launch.
 
 The quantizer is one launch of thread-block clusters (``csrc/kv_quant.cu``):
 each block of a cluster owns a slab of rows and reduces its per-channel
@@ -13,11 +15,13 @@ the clusters, the rows a block and whether the slab stays in shared memory.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.kv_restore import MAXF, RowsPlan, aligned16, rows_plan
 
 # csrc/kv_quant.cu's constants
 NT = 512                     # threads a block
@@ -101,8 +105,15 @@ def kv_quantize_plain(x):
     return q, scales
 
 
-def kv_dequantize_plain(q, scales, dtype=torch.bfloat16):
-    return (q.float() * scales.float()).to(dtype)
+def kv_dequantize_plain(q, scales, dtype=torch.bfloat16, *, chunk_size=None):
+    """One f32 multiply and one cast.  A tensor q with scales (C,), or a
+    run: lists of (A, T, C_f) codes and (ceil(T / chunk_size), C_f) scales,
+    decoded a chunk at a time with that chunk's row of scales (a list of
+    (A, n_c, C_f) chunks a field)."""
+    if isinstance(q, torch.Tensor):
+        return (q.float() * scales.float()).to(dtype)
+    return [[(x[:, c0:c0 + chunk_size].float() * s[c0 // chunk_size].float()).to(dtype)
+             for c0 in range(0, x.shape[1], chunk_size)] for x, s in zip(q, scales)]
 
 
 def kv_quantize(x, *, plan: QuantPlan | None = None):
@@ -129,25 +140,95 @@ def kv_quantize(x, *, plan: QuantPlan | None = None):
     return q, scales
 
 
-def kv_dequantize(q, scales, dtype=torch.bfloat16):
-    """Inverse of :func:`kv_quantize` (lossy): the kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
-    if q.device.type == "cpu":
-        return kv_dequantize_plain(q, scales, dtype)
-    _build.require_cuda("kv_dequantize", q, scales)
-    c = q.shape[-1]
-    if (q.dtype != torch.int8 or scales.dtype != torch.float32
-            or tuple(scales.shape) != (c,) or dtype not in _build.DTYPE_CODES):
-        raise ValueError("kv_dequantize: takes int8 q, f32 scales (C,) and a "
-                         "bf16/f32 output dtype")
-    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+def _dequant_shapes(q, scales, dtype, chunk_size):
+    """(A, T, chans, cs) of a call, as one run; raises on what the kernel
+    does not take.  A tensor q (any shape) with scales (C,) is one chunk:
+    A = 1, T = its rows."""
+    if dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"kv_dequantize: output dtype {dtype} (bf16 or f32)")
+    if isinstance(q, torch.Tensor):
+        c = q.shape[-1] if q.dim() else 0
+        if (q.dtype != torch.int8 or c < 1 or q.numel() < 1 or scales.dtype != torch.float32
+                or tuple(scales.shape) != (c,)):
+            raise ValueError("kv_dequantize: takes int8 q and f32 scales (C,)")
+        return 1, q.numel() // c, [c], q.numel() // c
+    if not 1 <= len(q) <= MAXF or len(scales) != len(q) or not chunk_size or chunk_size < 1:
+        raise ValueError(f"kv_dequantize: a run of 1-{MAXF} fields, each with its "
+                         "scales, and a chunk_size")
+    a, t = q[0].shape[:2]
+    chans = []
+    for x, s in zip(q, scales):
+        if (x.dtype != torch.int8 or x.dim() != 3 or x.shape[:2] != (a, t) or a < 1
+                or t < 1 or not x[0].is_contiguous()):
+            raise ValueError(f"kv_dequantize: run field {tuple(x.shape)} {x.dtype}: "
+                             "int8 (A, T, C) with rows contiguous")
+        if s.dtype != torch.float32 or tuple(s.shape) != (-(-t // chunk_size), x.shape[2]):
+            raise ValueError(f"kv_dequantize: run scales {tuple(s.shape)} {s.dtype}: "
+                             f"f32 (ceil(T / chunk_size), C) = ({-(-t // chunk_size)}, "
+                             f"{x.shape[2]})")
+        chans.append(x.shape[2])
+    return a, t, chans, chunk_size
+
+
+def _dequant_views(q, scales, a, t, chans):
+    """The run form of a call: lists of (A, T, C_f) codes and (n, C_f) scales."""
+    if isinstance(q, torch.Tensor):
+        return [q.reshape(a, t, chans[0])], [scales.reshape(1, chans[0])]
+    return list(q), list(scales)
+
+
+def kv_dequantize_plan(q, scales, dtype=torch.bfloat16, *, chunk_size=None) -> RowsPlan:
+    """The plan the kernel launches for this call (on any device; the
+    outputs are fresh, so aligned)."""
+    a, t, chans, cs = _dequant_shapes(q, scales, dtype, chunk_size)
+    qs, ss = _dequant_views(q, scales, a, t, chans)
+    esz = torch.empty((), dtype=dtype).element_size()
+    ptrs = [x.data_ptr() for x in qs + ss]
+    strides = [x.stride(0) for x in qs] + [k * cs * c * esz for c in chans for k in (1, a)]
+    return rows_plan(chans, t, a, aligned16(ptrs, strides))
+
+
+def kv_dequantize(q, scales, dtype=torch.bfloat16, *, chunk_size=None):
+    """Inverse of :func:`kv_quantize` (lossy): the kernel on CUDA tensors,
+    the plain version on CPU tensors.
+
+    ``q`` a tensor (any shape, channels last) with ``scales`` (C,): one
+    chunk, returns one tensor of q's shape.  ``q`` a list of (A, T, C_f)
+    int8 views whose rows are contiguous (any slot stride: a run's columns
+    of a staging buffer) with ``scales`` a list of per-chunk
+    (ceil(T / chunk_size), C_f) f32: a transfer run, every field in one
+    launch; returns for each field its chunks, (A, n_c, C_f) each: views of
+    one fresh chunk-major buffer, so each chunk but a ragged last one is
+    contiguous, as the pool copies it."""
+    a, t, chans, cs = _dequant_shapes(q, scales, dtype, chunk_size)
+    run = not isinstance(q, torch.Tensor)
+    dev = (q[0] if run else q).device
+    if dev.type == "cpu":
+        return kv_dequantize_plain(q, scales, dtype, chunk_size=chunk_size)
+    qs, ss = _dequant_views(q, scales, a, t, chans)
+    _build.require_cuda("kv_dequantize", *ss, *qs, contiguous=False)
+    _build.require_cuda("kv_dequantize", *ss, *([] if run else [q]))
+    outs = [torch.empty((-(-t // cs), a, cs, c), dtype=dtype, device=dev) for c in chans]
+    nf = len(qs)
+    ptrs = ctypes.c_void_p * nf
+    # the pointer arrays stay referenced here for the whole call
+    out_p = ptrs(*[x.data_ptr() for x in outs])
+    q_p = ptrs(*[x.data_ptr() for x in qs])
+    s_p = ptrs(*[x.data_ptr() for x in ss])
+    chans_p = (ctypes.c_int * nf)(*chans)
+    qss_p = (ctypes.c_longlong * nf)(*[x.stride(0) for x in qs])
     rc = _build.lib().kv_dequantize(
-        q.data_ptr(), scales.data_ptr(), out.data_ptr(), q.numel() // c, c,
-        _build.DTYPE_CODES[dtype], _build.stream_of(q))
+        nf, ctypes.addressof(out_p), ctypes.addressof(q_p), ctypes.addressof(s_p),
+        ctypes.addressof(chans_p), ctypes.addressof(qss_p), a, t, cs,
+        _build.DTYPE_CODES[dtype], _build.stream_of(ss[0]))
     _build.check_launch("kv_dequantize", rc)
     kv_dequantize.launches += 1
-    return out
+    if run:
+        kv_dequantize.run_launches += 1
+        return [[o[k // cs, :, :min(cs, t - k)] for k in range(0, t, cs)] for o in outs]
+    return outs[0].view(q.shape)
 
 
 kv_quantize.launches = 0
 kv_dequantize.launches = 0
+kv_dequantize.run_launches = 0    # of those, the run form (a transfer run's promotion)

@@ -26,8 +26,8 @@ from repro.storage import ChunkStore as JChunkStore  # noqa: E402
 import repro_torch.storage.chunkstore as chunkstore  # noqa: E402
 from repro_torch.kernels import kv_quant  # noqa: E402
 from repro_torch.kernels.kv_quant import (MAX_BLOCKS, MAX_CLUSTER, NT, SMEM_OPTIN,  # noqa: E402
-                                          STAGES, kv_quantize, kv_quantize_plain,
-                                          quant_plan)
+                                          STAGES, kv_dequantize, kv_dequantize_plain,
+                                          kv_quantize, kv_quantize_plain, quant_plan)
 from repro_torch.storage import ChunkStore  # noqa: E402
 
 BF16 = ml_dtypes.bfloat16
@@ -287,3 +287,51 @@ def test_hbm_tail_chunk_demotion_is_contiguous_and_matches_reference(monkeypatch
         _bytes_eq(got[f]["q"], want[f]["q"])
         _bytes_eq(got[f]["scales"], want[f]["scales"])
     assert ts.max_scale == js.max_scale
+
+
+@pytest.mark.parametrize("tail", [16, 10])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_run_dequant_equals_per_chunk_calls(dtype, tail):
+    """One run-form kv_dequantize over a transfer run's columns of a staging
+    buffer (5 chunks of 16 tokens, the last full or 10 tokens: a strided
+    view) with per-chunk scales returns each field's chunks, each equal to
+    a kv_dequantize_plain call on that chunk's codes and its row of scales,
+    bit for bit, also in the (A, 1, n, H, Dh) shape the datapath hands the
+    pool."""
+    rng = np.random.default_rng(21 + tail)
+    a, c, cs, chunks_n = 6, 256, 16, 5
+    t = (chunks_n - 1) * cs + tail
+    buf = [_t(rng.integers(-127, 128, (a, chunks_n * cs, c)).astype(np.int8)) for _ in range(2)]
+    scales = [_t((rng.random((chunks_n, c)) * 0.05).astype(np.float32)) for _ in range(2)]
+    q = [x[:, :t] for x in buf]
+    assert q[0].is_contiguous() == (tail == cs)
+    calls = kv_dequantize.launches
+    got = kv_dequantize(q, scales, dtype, chunk_size=cs)
+    assert kv_dequantize.launches == calls            # CPU tensors: the plain version
+    for chunks, x, s in zip(got, q, scales):
+        assert len(chunks) == chunks_n
+        for ch, g in enumerate(chunks):
+            part = slice(ch * cs, min(t, (ch + 1) * cs))
+            want = kv_dequantize_plain(x[:, part].contiguous(), s[ch], dtype)
+            assert g.shape == (a, part.stop - part.start, c) and g.dtype == dtype
+            assert torch.equal(g, want)
+            assert torch.equal(g.reshape(a, 1, -1, 2, c // 2), want.reshape(a, 1, -1, 2, c // 2))
+
+
+def test_dequantize_refuses_off_card_and_wrong_scales():
+    """Off the CPU the wrapper launches the kernel or raises: meta tensors
+    raise before a launch is counted, in both forms; scales of the wrong
+    shape raise in both forms on any device."""
+    before = (kv_dequantize.launches, kv_dequantize.run_launches)
+    q = torch.zeros(4, 16, 128, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kv_dequantize(q.to("meta"), torch.ones(128, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        kv_dequantize([q.to("meta")], [torch.ones(1, 128, device="meta")], chunk_size=16)
+    with pytest.raises(ValueError, match="scales"):
+        kv_dequantize(q, torch.ones(129))
+    with pytest.raises(ValueError, match="scales"):
+        kv_dequantize([q], [torch.ones(2, 128)], chunk_size=16)
+    with pytest.raises(ValueError):
+        kv_dequantize(q, torch.ones(128), torch.float16)
+    assert (kv_dequantize.launches, kv_dequantize.run_launches) == before
