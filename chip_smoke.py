@@ -27,8 +27,21 @@ state, rwkv6-7b with layer-wise restoration of its wkv and token-shift
 state — with suffix prefill, greedy decode and every restored cache
 verified, and checks that each kernel of a path launched during that
 path's serve (and that only the two ``wkv6`` kernels launched during the
-RWKV serve).  The second-to-last line of stdout is a ``{"kernels": [...]}``
-summary; the last line is the ok/device record.
+RWKV serve).  The qwen3 int8 serve's schedule is captured: the trace is
+saved under ``build/chip_smoke/``, linted (no finding), replayed analytically
+(equal to the capture) and replayed on the card by a fresh executor with
+its own int8 chunk store (the same ops log, every request verified within
+the store's ``max_scale``; whether the greedy tokens match is printed).  The
+crossover L_Δ between token- and layer-wise restoration is measured on
+qwen3-8b (``profile_measured``, lengths 256-4096) beside the analytic H100
+value.  Last, ``python -m repro_torch.launch.serve`` runs in process as a
+user runs it: a simulation, full-width int8 qwen3-8b for real with
+``--trace-out``, ``--replay`` of that trace analytically (with
+``--timeline-out``) and on the card, and full-width recurrentgemma-2b and
+rwkv6-7b for real, each ``--real`` call required to launch its path's
+kernels; one ``{"cli": [...]}`` line gives each call's wall seconds, TTFT,
+TPOT and launches.  The second-to-last line of stdout is a
+``{"kernels": [...]}`` summary; the last line is the ok/device record.
 Any failure raises (exit code != 0).  Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -46,6 +59,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+OUT_DIR = os.path.join(HERE, "build", "chip_smoke")   # ignored by git: traces, timelines
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -1264,6 +1278,8 @@ def prefill_sweep(dev):
 QWEN3_KERNELS = ("flash_prefill", "flash_decode", "kv_restore", "kv_quantize",
                  "kv_dequantize")
 HYBRID_KERNELS = ("rglru_scan", "rglru_scan_step", "flash_prefill", "flash_decode")
+# the CLI's on-card replay restores with no chunk store (loads copy ground truth)
+REPLAY_KERNELS = ("flash_prefill", "flash_decode")
 # rwkv6-7b is attention-free and takes no chunk store: only the two wkv6
 # kernels may launch (chunked for prefill and recompute, one step for decode)
 RWKV_KERNELS = ("wkv6", "wkv6_step")
@@ -1388,8 +1404,9 @@ def qwen3_server(dev):
     """qwen3-8b at full width and depth with random bf16 weights from seed 0,
     and ``serve(quant)``: four requests (prefixes 512-4096, 64 new tokens, 16
     output tokens each) through RealServingEngine from a ChunkStore of that
-    quantization on the host tier, verify on; returns (engine, store,
-    requests, report, seconds).  Only interfaces older trees share, so that
+    quantization on the host tier, verify on, its schedule recorded into
+    ``trace`` when one is given; returns (engine, store, requests, report,
+    seconds).  Only interfaces older trees share, so that
     ``--promote-profile`` runs there too."""
     import torch
     from repro_torch.configs import get_config
@@ -1401,7 +1418,7 @@ def qwen3_server(dev):
                   device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
 
-    def serve(quant):
+    def serve(quant, trace=None):
         store = ChunkStore(chunk_size=16, quant=quant, default_tier="host", device=dev)
         eng = RealServingEngine(model, params, system="cacheflow", stages=2,
                                 chunk_size=256, l_delta=1024, max_batch=2,
@@ -1409,7 +1426,7 @@ def qwen3_server(dev):
         reqs = [Request(f"r{n}", 0.0, n, 64, decode_len=16)
                 for n in (512, 1536, 2560, 4096)]
         t0 = time.perf_counter()
-        rep = eng.serve(reqs, verify=True)
+        rep = eng.serve(reqs, verify=True, trace=trace)
         torch.cuda.synchronize()
         return eng, store, reqs, rep, time.perf_counter() - t0
     return cfg, model, params, serve
@@ -1427,6 +1444,7 @@ def first_difference(a: dict, b: dict):
 
 def serve_phase(dev, card: str, profile: bool = False) -> dict:
     import torch
+    from repro_torch.core.trace import TraceRecorder
 
     t0 = time.perf_counter()
     cfg, model, params, serve = qwen3_server(dev)
@@ -1434,10 +1452,12 @@ def serve_phase(dev, card: str, profile: bool = False) -> dict:
     init_s = time.perf_counter() - t0
     n_params = model.num_params(params)
 
-    # the main path: every launch counter from 0 just before, read just after
+    # the main path: every launch counter from 0 just before, read just after;
+    # its schedule is captured (recording observes, it decides nothing)
+    recorder = TraceRecorder()
     zero_counters()
     torch.cuda.reset_peak_memory_stats()
-    eng, store, reqs, rep, serve_s = serve("int8")
+    eng, store, reqs, rep, serve_s = serve("int8", trace=recorder)
     launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the same requests from an unquantized store: loads are then raw copies,
@@ -1512,7 +1532,178 @@ def serve_phase(dev, card: str, profile: bool = False) -> dict:
                              f"!= transfer runs {dp.kernel_launches}")
     if sorted(set(strategies.values())) != ["layer", "token"]:
         raise AssertionError(f"expected layer- and token-wise plans: {strategies}")
+    result["replay"] = replay_check(dev, card, model, params, eng, reqs, recorder.trace)
+    result["crossover"] = crossover_phase(dev, card, cfg, model, params)
     return result
+
+
+def replay_check(dev, card: str, model, params, eng, reqs, trace) -> dict:
+    """The int8 qwen3 serve's captured schedule: saved under OUT_DIR,
+    linted (no finding), replayed analytically (equal to the captured
+    result), then replayed on the card by a fresh executor on the same
+    model and weights with its own int8 chunk store (16-token blocks, host
+    tier) and fused datapath, fed the serve's inputs and suffixes: the same
+    ops log and restore finishes, every request verified within the store's
+    ``max_scale``.  Prints whether the replay's greedy tokens equal the
+    serve's (and the first request and step where they differ) and the
+    kernels launched by the replay's executor (its ``remember`` included)."""
+    import torch
+    from repro_torch.analysis.trace_lint import lint_trace_file
+    from repro_torch.core.datapath import RestoreDatapath
+    from repro_torch.core.executor import RestorationExecutor
+    from repro_torch.core.trace import ScheduleTrace, replay_trace
+    from repro_torch.storage import ChunkStore
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "qwen3_int8_serve.trace.json")
+    trace.save(path)
+    findings = [str(f) for f in lint_trace_file(path)]
+    loaded = ScheduleTrace.load(path)
+    captured = loaded.captured_result()
+    analytic_equal = replay_trace(loaded) == captured
+
+    store = ChunkStore(chunk_size=16, quant="int8", default_tier="host", device=dev)
+    ex0 = eng.executor
+    zero_counters()
+    t0 = time.perf_counter()
+    ex = RestorationExecutor(model, params, chunk_size=ex0.chunk_size, stages=ex0.stages,
+                             chunk_store=store,
+                             datapath=RestoreDatapath.for_channels(1, device=dev))
+    for r in reqs:
+        ex.remember(r.request_id, eng._inputs(r.prefix_len))
+        ex.set_suffix(r.request_id, eng._inputs(r.new_len), decode_len=r.decode_len)
+    res = replay_trace(loaded, ex, verify=True,
+                       verify_atol=2e-2 + store.quant_tolerance())
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    launches = read_counters()
+    tokens = {r.request_id: ex0.outputs(r.request_id)["tokens"] for r in reqs}
+    tokens_replay = {r.request_id: ex.outputs(r.request_id)["tokens"] for r in reqs}
+    worst = max(v for e in ex.verify_errs.values() for v in e.values())
+    out = dict(card=card, trace=os.path.relpath(path, HERE), events=len(loaded.events),
+               dispatches=len(loaded.dispatches()), decode_steps=len(loaded.decode_steps()),
+               lint_findings=findings, analytic_equal=analytic_equal,
+               ops_log_equal=res.ops_log == captured.ops_log,
+               restore_finish_equal=res.restore_finish == captured.restore_finish,
+               verified=sorted(ex.verify_errs), verify_max_err=worst,
+               max_scale=store.max_scale, replay_s=replay_s,
+               tokens_equal=tokens_replay == tokens,
+               tokens_first_difference=first_difference(tokens, tokens_replay),
+               launches=launches)
+    print(json.dumps({"serve_replay": out}))
+    if findings:
+        raise AssertionError(f"lint findings in the captured trace: {findings[:5]}")
+    if not analytic_equal:
+        raise AssertionError("analytic replay differs from the captured result")
+    if not (out["ops_log_equal"] and out["restore_finish_equal"]):
+        raise AssertionError("on-device replay left the captured schedule")
+    if out["verified"] != sorted(r.request_id for r in reqs) or worst > store.max_scale:
+        raise AssertionError(f"replay verify: {out['verified']}, worst {worst} "
+                             f"> max_scale {store.max_scale}")
+    return out
+
+
+CROSSOVER_LENGTHS = (256, 512, 1024, 2048, 4096)
+
+
+def crossover_phase(dev, card: str, cfg, model, params) -> dict:
+    """The crossover L_Δ between token- and layer-wise restoration (paper
+    Fig. 3) measured by ``profile_measured`` on a qwen3-8b executor at full
+    width (bf16, chunk 256, 2 stages, no chunk store), best of 3 at each
+    length, each restored cache verified; printed beside the analytic L_Δ
+    of the H100 cost model at 10 Gbps and the 1024 the serves fix."""
+    import torch
+    from repro_torch.config import HARDWARE, IO_BANDWIDTHS
+    from repro_torch.core.cost_model import CostModel
+    from repro_torch.core.executor import RestorationExecutor
+    from repro_torch.core.profiler import profile_analytic, profile_measured
+
+    ex = RestorationExecutor(model, params, chunk_size=256, stages=2)
+    gen = torch.Generator().manual_seed(3)
+    t0 = time.perf_counter()
+    prof = profile_measured(
+        ex, lambda n: torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                                    dtype=torch.int32),
+        lengths=list(CROSSOVER_LENGTHS), repeats=3)
+    seconds = time.perf_counter() - t0
+    errs = {n: max(ex.verify(f"prof-{n}").values()) for n in CROSSOVER_LENGTHS}
+    cost = CostModel(cfg, HARDWARE["h100"], IO_BANDWIDTHS["10Gbps"])
+    analytic = profile_analytic(cost, list(CROSSOVER_LENGTHS))
+    out = dict(card=card, lengths=prof.lengths, t_token_s=prof.t_token,
+               t_layer_s=prof.t_layer, l_delta=prof.l_delta,
+               analytic_t_token_s=analytic.t_token, analytic_t_layer_s=analytic.t_layer,
+               l_delta_analytic_h100_10gbps=cost.crossover_l_delta(),
+               l_delta_serves=1024, verify_max_err=errs, seconds=seconds)
+    print(json.dumps({"crossover": out}))
+    return out
+
+
+def cli_phase(dev, card: str) -> dict:
+    """``python -m repro_torch.launch.serve`` as a user runs it, in process:
+    a paper-scale simulation; full-width int8 qwen3-8b for real with its
+    schedule captured (each of the five qwen3 kernels must launch); the
+    capture replayed analytically (equal to it) with a Perfetto timeline,
+    then on the card (verify on); full-width recurrentgemma-2b and rwkv6-7b
+    for real (their scan kernels must launch).  Prints one ``{"cli": ...}``
+    line: each call's wall seconds, its report's TTFT p50 and mean TPOT,
+    and its launches by kernel."""
+    import io
+
+    import torch
+    from repro_torch.core.trace import ScheduleTrace, replay_trace
+    from repro_torch.launch import serve as cli
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    trace = os.path.join(OUT_DIR, "cli_qwen3_int8.trace.json")
+    timeline = os.path.join(OUT_DIR, "cli_qwen3_int8.timeline.json")
+    calls = [
+        ("sim", ["--requests", "64", "--workload", "swe_bench"], ()),
+        ("real_qwen3", ["--real", "--arch", "qwen3-8b", "--requests", "4",
+                        "--kv-quant", "int8", "--trace-out", trace], QWEN3_KERNELS),
+        ("replay", ["--replay", trace, "--timeline-out", timeline], ()),
+        ("replay_real", ["--replay", trace, "--real"], REPLAY_KERNELS),
+        ("real_hybrid", ["--real", "--arch", "recurrentgemma-2b", "--requests", "4"],
+         HYBRID_KERNELS),
+        ("real_rwkv", ["--real", "--arch", "rwkv6-7b", "--requests", "4"], RWKV_KERNELS),
+    ]
+    rows = []
+    for name, argv, must_launch in calls:
+        zero_counters()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        # the engines and executors hold each other: free the full-width
+        # model before the next call builds one
+        gc.collect()
+        torch.cuda.empty_cache()
+        report = json.loads(buf.getvalue())
+        stats = report.get("lifecycle", {})
+        rows.append(dict(call=name, argv=[os.path.relpath(a, HERE) if a.startswith(OUT_DIR)
+                                          else a for a in argv],
+                         mode=report.get("mode", "sim"), wall_s=wall,
+                         ttft_p50_s=stats.get("p50"), tpot_mean_s=stats.get("tpot_mean"),
+                         completed=stats.get("completed"),
+                         launches={k: v for k, v in launches.items() if v}))
+        missing = [n for n in must_launch if launches[n] == 0]
+        if missing:
+            print(json.dumps({"cli": rows}))
+            raise AssertionError(f"cli {name}: kernels not launched: {missing}")
+        if name == "replay":
+            loaded = ScheduleTrace.load(trace)
+            if replay_trace(loaded) != loaded.captured_result():
+                raise AssertionError("cli replay differs from the captured result")
+            with open(timeline) as f:
+                rows[-1]["timeline_events"] = len(json.load(f)["traceEvents"])
+            if not rows[-1]["timeline_events"]:
+                raise AssertionError("cli timeline holds no event")
+        if name.startswith("real") and stats.get("completed") != 4:
+            raise AssertionError(f"cli {name}: {stats.get('completed')} of 4 completed")
+    print(json.dumps({"cli": rows}))
+    return {r["call"]: r for r in rows}
 
 
 def promote_profile(dev, card: str) -> dict:
@@ -1820,6 +2011,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         rres = rwkv_serve_phase(dev, card, args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli_phase(dev, card)
 
     # (kernel-phase entry, source, TPU kernel, the serve whose shapes it has)
     fp = ("src/repro_torch/csrc/flash_prefill.cu",

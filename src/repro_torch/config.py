@@ -2,7 +2,9 @@
 
 A copy of ``repro.config`` (the port imports nothing of ``repro``) holding
 what the port uses: the frozen :class:`ModelConfig` with its family
-sub-configs, and the :class:`HardwareProfile` type the cost model reads.
+sub-configs, and the :class:`HardwareProfile` type the cost model reads with
+the reference's hardware and I/O-bandwidth tables (``HARDWARE``,
+``IO_BANDWIDTHS``) that the simulation engine and the serve CLI take.
 Configs are pure data — models are built from them in
 ``repro_torch.models.model``.
 """
@@ -317,3 +319,17 @@ class HardwareProfile:
     hbm_bytes: float
     # serving-simulation extras
     kernel_overhead_s: float = 30e-6   # fixed per-launch overhead (paper's c0)
+
+
+HARDWARE = {
+    "tpu_v5e": HardwareProfile("tpu_v5e", 197e12, 819e9, 50e9, 16e9),
+    # Paper GPUs; h100 is the port's serve CLI default (the card it runs on)
+    "l40s": HardwareProfile("l40s", 181e12, 864e9, 32e9, 46e9, kernel_overhead_s=20e-6),
+    "a100": HardwareProfile("a100", 312e12, 1555e9, 300e9, 40e9, kernel_overhead_s=15e-6),
+    "h100": HardwareProfile("h100", 989e12, 3350e9, 450e9, 80e9, kernel_overhead_s=12e-6),
+}
+
+GBPS = 1e9 / 8  # bytes/s per Gbps
+
+# Paper's studied I/O bandwidths (bytes/s)
+IO_BANDWIDTHS = {"10Gbps": 10 * GBPS, "40Gbps": 40 * GBPS, "80Gbps": 80 * GBPS}

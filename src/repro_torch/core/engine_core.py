@@ -625,9 +625,8 @@ class EngineCore:
     def run(self, requests: List[EngineRequest],
             trace: Optional["TraceRecorder"] = None) -> EngineResult:
         """Drive the batch to completion.  ``trace``, when given, is a
-        recorder with the interface of ``repro.core.trace.TraceRecorder`` (trace
-        capture is not ported yet) that captures every scheduling
-        decision as a replayable ``ScheduleTrace``."""
+        ``repro_torch.core.trace.TraceRecorder`` that captures every
+        scheduling decision as a replayable ``ScheduleTrace``."""
         empty = [r.request_id for r in requests if not r.plans]
         if empty:
             if self.strict:

@@ -1,11 +1,16 @@
-"""Serving engine: continuous batching with CacheFlow restoration.
+"""Serving engines: continuous batching with CacheFlow restoration.
 
-Counterpart of ``repro.serving.engine`` (the real-mode engine; the
-simulation engine is not ported yet).  ``RealServingEngine`` is a thin
-facade over the shared event loop
-(:class:`repro_torch.core.engine_core.EngineCore`) with a ``RealBackend``
-that executes the dispatched ops on the device (restoration → suffix
-prefill → batched decode), wall-clock timed and output-verified.
+Counterpart of ``repro.serving.engine``.  Both engines are thin facades
+over the SAME shared event loop
+(:class:`repro_torch.core.engine_core.EngineCore`); only the backend
+differs:
+
+  * ``SimServingEngine``  — ``SimBackend`` advances virtual time with the
+    paper's hardware profiles (a copy of the reference's: both packages
+    give equal ``ServingReport``s on the same requests).
+  * ``RealServingEngine`` — ``RealBackend`` executes the dispatched ops on
+    the device (restoration → suffix prefill → batched decode), wall-clock
+    timed and output-verified.
 
 The whole first-token path runs INSIDE the engine loop: suffix prefill is a
 scheduled op competing FCFS with other requests' restoration chunks, and
@@ -22,12 +27,16 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.baselines import make_baseline_plans
+from repro_torch.config import HardwareProfile, ModelConfig
+from repro_torch.core.baselines import make_baseline_plans, sim_kwargs
 from repro_torch.core.boundary import stage_bounds
+from repro_torch.core.cost_model import CostModel
 from repro_torch.core.engine_core import (EngineCore, EngineRequest, EngineResult,
-                                          RealBackend, interleaving_dur_fn)
+                                          RealBackend, SimBackend,
+                                          interleaving_dur_fn)
 from repro_torch.core.executor import RestorationExecutor
 from repro_torch.models.model import resolve_device
+from repro_torch.serving.kvstore import TieredKVStore
 from repro_torch.serving.metrics import lifecycle_stats, percentiles
 from repro_torch.serving.request import Phase, Request
 
@@ -95,6 +104,104 @@ def _fill_lifecycle(requests: List[Request], res: EngineResult):
         if ft is not None and n_out > 1:
             tpots[rid] = (done - ft) / (n_out - 1)
     return ttfts, restore_secs, e2e, tpots, total_tokens, arrivals, finishes
+
+
+# ---------------------------------------------------------------------------
+# Simulation mode
+# ---------------------------------------------------------------------------
+
+
+class SimServingEngine:
+    def __init__(self, cfg: ModelConfig, hw: HardwareProfile, *,
+                 io_bandwidth: float, system: str = "cacheflow",
+                 stages: int = 1, io_channels: int = 1, mfu: float = 0.45,
+                 num_chips: int = 1, chunk_size: int = 512,
+                 l_delta: Optional[int] = None, max_batch: int = 0,
+                 kvstore: Optional[TieredKVStore] = None,
+                 channel_slowdown=None, channel_fail_at=None,
+                 preempt: str = "none", evict: bool = False,
+                 kv_tier: str = "host", admission: str = "continuous",
+                 prefetch: bool = False, decode_interference: float = 0.0,
+                 sanitize: Optional[bool] = None, telemetry=None):
+        self.cfg = cfg
+        self.system = system
+        self.stages = stages
+        self.chunk_size = chunk_size
+        self.cost = CostModel(cfg, hw, io_bandwidth, mfu=mfu, num_chips=num_chips,
+                              io_channels=1,
+                              decode_interference=decode_interference)
+        self.l_delta = l_delta if l_delta is not None else self.cost.crossover_l_delta()
+        self.io_channels = io_channels
+        self.max_batch = max_batch
+        self.kvstore = kvstore
+        self.channel_slowdown = channel_slowdown
+        self.channel_fail_at = channel_fail_at
+        self.preempt = preempt
+        self.evict = evict
+        # which tier returning prefixes start in: "host" models warm reuse,
+        # "remote" the paper's cold disaggregated-store regime where
+        # restoration time (and hence admission pressure) is real
+        self.kv_tier = kv_tier
+        self.admission = admission
+        self.prefetch = prefetch
+        self.sanitize = sanitize
+        self.telemetry = telemetry
+
+    def _make_core(self) -> EngineCore:
+        kw = sim_kwargs(self.system)
+        return EngineCore(
+            SimBackend(self.cost), stages=self.stages,
+            io_channels=self.io_channels, max_active=self.max_batch,
+            channel_slowdown=self.channel_slowdown,
+            channel_fail_at=self.channel_fail_at,
+            kvstore=self.kvstore, preempt=self.preempt, evict=self.evict,
+            admission=self.admission, prefetch=self.prefetch,
+            sanitize=self.sanitize, telemetry=self.telemetry, **kw)
+
+    def run(self, requests: List[Request], trace=None) -> ServingReport:
+        """Drive every request through its whole lifecycle (restore →
+        contended suffix prefill → batched decode) on the shared loop.
+
+        ``trace``: optional ``TraceRecorder`` capturing the schedule for
+        deterministic replay (see :mod:`repro_torch.core.trace`)."""
+        bounds = (stage_bounds(self.cfg.num_layers, self.stages)
+                  if self.stages > 1 else None)
+        engine_reqs = []
+        for r in requests:
+            plans = make_baseline_plans(
+                self.system, r.request_id, r.prefix_len,
+                chunk_size=self.chunk_size, l_delta=self.l_delta,
+                num_layers=self.cfg.num_layers, stage_bounds=bounds)
+            engine_reqs.append(EngineRequest(r.request_id, r.prefix_len,
+                                             arrival=r.arrival, plans=plans,
+                                             new_len=r.new_len,
+                                             decode_len=r.decode_len,
+                                             priority=r.priority,
+                                             deadline=r.deadline))
+            if self.kvstore is not None:
+                self.kvstore.put(r.request_id,
+                                 r.prefix_len * self.cfg.kv_bytes_per_token(),
+                                 tier=self.kv_tier)
+        core = self._make_core()
+        res = core.run(engine_reqs, trace=trace)
+        san = core.last_sanitizer
+        tel = core.last_telemetry
+        ttfts, restore_secs, e2e, tpots, total, arrivals, finishes = \
+            _fill_lifecycle(requests, res)
+        return ServingReport(self.system, ttfts, restore_secs,
+                             res.compute_busy, res.io_busy,
+                             e2e=e2e, tpots=tpots, decode_busy=res.decode_busy,
+                             preemptions=dict(res.preemptions),
+                             arrivals=arrivals, finishes=finishes,
+                             overlap_decode_restore=res.overlap_decode_restore,
+                             sanitizer=(san.counters.as_dict()
+                                        if san is not None else None),
+                             telemetry=(tel.snapshot()
+                                        if tel is not None else None),
+                             stats=lifecycle_stats(
+                                 ttfts, e2e, tpots, total, res.makespan,
+                                 arrivals=arrivals, finishes=finishes,
+                                 offered=len(requests)))
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +321,8 @@ class RealServingEngine:
         executes ops serially, so the true serial wall time for the whole
         batch is reported separately as ``stats["serve_wall"]``.
 
-        ``trace``: optional recorder with the interface of the reference's
-        ``TraceRecorder`` (trace capture is not ported yet)."""
+        ``trace``: optional ``TraceRecorder`` capturing the lifecycle
+        schedule for deterministic replay (see :mod:`repro_torch.core.trace`)."""
         cfg = self.model.cfg
         bounds = (stage_bounds(cfg.num_layers, self.stages)
                   if self.stages > 1 else None)

@@ -25,6 +25,7 @@ from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize  # noqa: E40
 from repro_torch.kernels.kv_restore import kv_restore_scatter  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import wkv6  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models import Model, params_from_jax  # noqa: E402
 from repro_torch.serving import ChunkStore, RealServingEngine  # noqa: E402
 
@@ -60,7 +61,8 @@ def _no_cuda():
         pytest.skip("a CUDA device is present: the default device is usable")
 
 
-@pytest.mark.parametrize("entry", ["model", "store", "datapath", "params", "engine"])
+@pytest.mark.parametrize("entry", ["model", "store", "datapath", "params", "engine",
+                                   "serve_real"])
 def test_default_device_entry_points_raise_without_cuda(entry):
     _no_cuda()
     cfg = get_config("qwen3-8b").reduced()
@@ -73,6 +75,8 @@ def test_default_device_entry_points_raise_without_cuda(entry):
             RestoreDatapath.for_channels(1)
         elif entry == "params":
             params_from_jax({"embed": [[0.0]]})
+        elif entry == "serve_real":
+            serve_main(["--real", "--requests", "1"])
         else:
             m = Model(cfg, device="cpu")
             RealServingEngine(m, m.init(torch.Generator().manual_seed(0)))
