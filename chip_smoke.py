@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py                   # build + kernel phase + serve phases
+    python3 chip_smoke.py                   # build + kernel phase + serve, dense, CLI phases
     python3 chip_smoke.py --kernels-only    # build + kernel phase only
     python3 chip_smoke.py --profile         # also trace one serve of each model
     python3 chip_smoke.py --decode-sweep    # kernel phase + flash_decode over S, B
@@ -34,15 +34,27 @@ its own int8 chunk store (the same ops log, every request verified within
 the store's ``max_scale``; whether the greedy tokens match is printed).  The
 crossover L_Δ between token- and layer-wise restoration is measured on
 qwen3-8b (``profile_measured``, lengths 256-4096) beside the analytic H100
-value.  Last, ``python -m repro_torch.launch.serve`` runs in process as a
-user runs it: a simulation, full-width int8 qwen3-8b for real with
-``--trace-out``, ``--replay`` of that trace analytically (with
-``--timeline-out``) and on the card, and full-width recurrentgemma-2b and
-rwkv6-7b for real, each ``--real`` call required to launch its path's
-kernels; one ``{"cli": [...]}`` line gives each call's wall seconds, TTFT,
-TPOT and launches.  The second-to-last line of stdout is a
-``{"kernels": [...]}`` summary; the last line is the ok/device record.
-Any failure raises (exit code != 0).  Imports nothing of JAX or ``repro``.
+value.  The dense phase serves each dense config the port added
+(llama3.1-8b from an int8 store, phi4-mini-3.8b, qwen1.5-0.5b, and
+qwen1.5-110b and mistral-large-123b at full width cut to 8 layers), every
+request verified, its attention kernels (and llama's store kernels)
+launched and its greedy tokens held by a second unquantized serve; the
+kernel phase checks both attention kernels at those configs' new shapes
+(Dh 64 with G 1, G 3, G 12) and holds every ``flash_prefill`` entry to two
+more checks (``rounding_ratio`` at most 1, and its error against f32 no
+larger than the plain version's).  Last, ``python -m repro_torch.launch.serve`` runs in
+process as a user runs it: a simulation, full-width int8 qwen3-8b for real
+with ``--trace-out``, ``--replay`` of that trace analytically (with
+``--timeline-out``) and on the card, full-width recurrentgemma-2b and
+rwkv6-7b for real, the int8 qwen3-8b call again under ``--sanitize
+--telemetry --metrics-out --timeline-out``, llama3.1-8b and the MoE
+qwen3-30b-a3b simulated, and llama3.1-8b for real, each ``--real`` call
+required to launch its path's kernels; one ``{"cli": [...]}`` line gives
+each call's wall seconds, TTFT, TPOT and launches.  Then the sanitizer's
+copy-on-write check runs on a CUDA block pool.  The second-to-last line of
+stdout is a ``{"kernels": [...]}`` summary; the last line is the ok/device
+record.  Any failure raises (exit code != 0).  Imports nothing of JAX or
+``repro``.
 """
 from __future__ import annotations
 
@@ -65,13 +77,26 @@ BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 # Largest |kernel - plain| the attention checks accept.  Outputs of the N(0,1)
 # inputs reach 0.1-0.6.  Measured on an H100 (PERF.md): prefill differs by at
-# most 1.95e-3, one bf16 step at its largest output 0.27 (the plain version
-# rounds scores to bf16, the kernel keeps them in f32); decode, f32 in both
-# but summed in another order over the splits of the cache, by at most
-# 2.44e-4, one bf16 step of an output near 0.05.  The bounds are about twice
-# and four times that.
+# most 3.91e-3 (2^-8), one bf16 step of an output in [0.5, 1): both round
+# their output to bf16, and each rounds its probabilities to bf16 before P.V
+# (the plain version the normalised ones, the kernel the unnormalised ones),
+# so one step apart is expected; decode, f32 in both but summed in another
+# order over the splits of the cache, by at most 2.44e-4, one bf16 step of an
+# output near 0.05.  The decode bound is about four times that.
 PREFILL_TOL = 4e-3
 DECODE_TOL = 1e-3
+# Two more checks hold each prefill entry at its timed shape, element by
+# element and against f32:
+#  * rounding_ratio <= 1: |kernel - plain| within the two sides' roundings,
+#    one bf16 rounding of every probability on each side (relative 2^-9
+#    each, so 2^-8 * sum_j p_j |v_j| together, sum_j p_j |v_j| computed in
+#    f32) plus one bf16 step of max(|kernel|, |plain|) for the two output
+#    roundings.  A bound of one bf16 step of the output alone does not hold
+#    where the output is near 0 and the sum cancels (the step shrinks with
+#    the output, the probabilities' rounding does not): the entries print
+#    that ratio as max_bf16_steps.
+#  * the kernel's largest |kernel - f32| is no larger than the plain
+#    version's largest |plain - f32| (f32 being the plain version run in f32).
 # rglru_scan repeats its plain version's IEEE arithmetic step by step (expf,
 # a multiply, then an add, all in f32), so it is held to equality.
 RGLRU_TOL = 0.0
@@ -208,13 +233,15 @@ def prefill_timing(q, k, v, kpos, q_off: int, window: int, flush, sm: int) -> di
     ms = time_ms(call, flush=flush)
     m_tile, n_split, split_slots = _plan(b, hkv, sq, hq // hkv, s, sm)
     # the kernel and the plain version against the f32 answer (the plain
-    # version in f32 throughout)
+    # version in f32 throughout), and element by element against each other
+    plain = flash_prefill_plain(q, k, v, kpos, q_off, **kw)
     ref32 = flash_prefill_plain(q.float(), k.float(), v.float(), kpos, q_off, **kw)
     return dict(
         ms=ms,
         err_vs_f32=float((out.float() - ref32).abs().max()),
-        plain_err_vs_f32=float((flash_prefill_plain(q, k, v, kpos, q_off, **kw).float()
-                                - ref32).abs().max()),
+        plain_err_vs_f32=float((plain.float() - ref32).abs().max()),
+        **rounding_check(out, plain, flash_prefill_plain(
+            q.float(), k.float(), v.float().abs(), kpos, q_off, **kw)),
         plain_ms=time_ms(lambda: flash_prefill_plain(q, k, v, kpos, q_off, **kw),
                          flush=flush, iters=7),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -225,6 +252,59 @@ def prefill_timing(q, k, v, kpos, q_off: int, window: int, flush, sm: int) -> di
         m_tile=m_tile, n_split=n_split, split_slots=split_slots)
 
 
+def bf16_step(x):
+    """One bf16 step (unit in the last place) at each |x|: 2^(e - 8) for x
+    in [2^(e-1), 2^e)."""
+    import torch
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def rounding_check(out, plain, abs_weighted) -> dict:
+    """|out - plain| element by element against the two sides' bf16
+    roundings: ``rounding_ratio`` is the largest |out - plain| / (2^-8 *
+    sum_j p_j |v_j| + one bf16 step of max(|out|, |plain|)), ``abs_weighted``
+    being sum_j p_j |v_j| in f32; ``max_bf16_steps`` the largest
+    |out - plain| in bf16 steps of max(|out|, |plain|) alone."""
+    import torch
+    d = (out.float() - plain.float()).abs()
+    step = bf16_step(torch.maximum(out.float().abs(), plain.float().abs()))
+    return dict(rounding_ratio=float((d / (2 ** -8 * abs_weighted + step)).max()),
+                max_bf16_steps=float((d / step).max()))
+
+
+def decode_timing(q, k, v, kpos, q_pos: int, window: int, flush, sm: int) -> dict:
+    """flash_decode at one shape: kernel, plain version and SDPA (boolean mask
+    over K/V expanded to every query head) by CUDA events, inputs cold in L2;
+    its two kernels by torch.profiler, cold and warm; the bound from the
+    bytes of the whole cache (decode reads every slot); the plan's n_split."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import _split_plan, flash_decode, flash_decode_plain
+
+    b, hq, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    kw = dict(scale=dh ** -0.5, window=window)
+    out = flash_decode(q, k, v, kpos, q_pos, **kw)
+    bms, by = bound(nbytes(q, k, v, kpos, out), 4 * hq * dh * s * b)
+    mask = (kpos >= 0) & (kpos <= q_pos)
+    if window > 0:
+        mask &= kpos > q_pos - window
+    kt = k.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+
+    def call():
+        return flash_decode(q, k, v, kpos, q_pos, **kw)
+    ms = time_ms(call, flush=flush)
+    return dict(
+        ms=ms,
+        plain_ms=time_ms(lambda: flash_decode_plain(q, k, v, kpos, q_pos, **kw), flush=flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=mask[None], scale=kw["scale"]), flush=flush),
+        bound_ms=bms, bound_by=by, bound_share=bms / ms,
+        kernels_us=kernels_us(call, flush), kernels_us_warm=kernels_us(call),
+        n_split=_split_plan(b, hkv, s, sm)[1])
+
+
 # ---------------------------------------------------------------------------
 # Kernel phase: each kernel against its plain version at the path's shapes
 # ---------------------------------------------------------------------------
@@ -232,7 +312,6 @@ def prefill_timing(q, k, v, kpos, q_off: int, window: int, flush, sm: int) -> di
 
 def kernel_phase(dev, card: str) -> dict:
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (_split_plan, flash_decode,
                                                   flash_decode_plain)
     from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
@@ -321,9 +400,6 @@ def kernel_phase(dev, card: str) -> dict:
         **prefill_timing(qs_, ks_, vs_, kps_, 4096, 0, flush, sm),
         shape="q (1,64,32,128) at q_offset 4096 over 4176 slots, 4160-4175 empty, bf16")
     del qs_, ks_, vs_, qm, km, vm
-    qt = q.transpose(1, 2)
-    kt = k.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
-    vt = v.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
 
     # 2. flash_decode: one token over 4096 slots (timed), then checks at the
     # edges of its split over the cache: position 3000 of a 4096-slot cache
@@ -376,22 +452,11 @@ def kernel_phase(dev, card: str) -> dict:
     del q2, k2, v2
     torch.cuda.synchronize()
     err = max(c["max_abs_err"] for c in cases)
-    bms, by = bound(nbytes(qd, k, v, kpos, out), 4 * hq * dh * s)
-    qdt = qd[:, :, None]
-    ms = time_ms(lambda: flash_decode(qd, k, v, kpos, s - 1, scale=scale), flush=flush)
-    def call():
-        return flash_decode(qd, k, v, kpos, s - 1, scale=scale)
-    probe = dict(kernels_us=kernels_us(call, flush), kernels_us_warm=kernels_us(call))
-    res["flash_decode"] = dict(**probe,
-        max_abs_err=err, tol=DECODE_TOL, cases=cases, ms=ms,
-        plain_ms=time_ms(lambda: flash_decode_plain(qd, k, v, kpos, s - 1, scale=scale),
-                         flush=flush),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qdt, kt, vt, attn_mask=(kpos >= 0)[None], scale=scale), flush=flush),
-        bound_ms=bms, bound_by=by, bound_share=bms / ms,
-        n_split=_split_plan(1, hkv, s, sm)[1],
+    res["flash_decode"] = dict(
+        max_abs_err=err, tol=DECODE_TOL, cases=cases,
+        **decode_timing(qd, k, v, kpos, s - 1, 0, flush, sm),
         shape=f"q (1,{hq},{dh}) over {s} slots, bf16")
-    del q, k, v, qt, kt, vt
+    del q, k, v
 
     # 3. kv_restore
     restore_cases(dev, g, flush, res)
@@ -401,6 +466,7 @@ def kernel_phase(dev, card: str) -> dict:
 
     hybrid_kernel_cases(dev, g, flush, res)
     rwkv_kernel_cases(dev, g, flush, res)
+    dense_kernel_cases(dev, g, flush, res)
 
     for name, r in res.items():
         line = {("max_err" if k == "max_abs_err" else "kernel_ms" if k == "ms" else k): v
@@ -411,7 +477,12 @@ def kernel_phase(dev, card: str) -> dict:
            if not r.get("max_rel_err", r["max_abs_err"]) <= r["tol"]
            or r.get("bit_exact") is False or r.get("invariant_512") is False
            or r.get("finite") is False
-           or not r.get("s_last_max_rel_err", 0.0) <= r.get("s_last_tol", 0.0)]
+           or not r.get("s_last_max_rel_err", 0.0) <= r.get("s_last_tol", 0.0)
+           # within the two sides' bf16 roundings (see rounding_check)
+           or not r.get("rounding_ratio", 0.0) <= 1
+           or not r.get("err_vs_f32", 0.0) <= r.get("plain_err_vs_f32", float("inf"))
+           or not all(c["rounding_ratio"] <= 1 and c["err_vs_f32"] <= c["plain_err_vs_f32"]
+                      for c in r.get("cases", []) if "rounding_ratio" in c)]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return res
@@ -792,7 +863,6 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
     KV head at Dh 256 over a 2048-slot ring cache with a 2048 window, and
     the RG-LRU scan over (1, S, 2560) f32."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (_split_plan, flash_decode,
                                                   flash_decode_plain)
     from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
@@ -813,12 +883,6 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
         idx = torch.randperm(kp.numel(), generator=g, device=dev)[:n]
         kp[idx] -= s
         v_[:, kp <= q_last - win] = 100.0
-
-    def sdpa_args(q4, k_, v_, kp, qpos):
-        mask = (kp[None] >= 0) & (kp[None] <= qpos[:, None]) \
-            & (kp[None] > qpos[:, None] - win)
-        return (q4.transpose(1, 2), k_.transpose(1, 2).repeat_interleave(hq // hkv, 1),
-                v_.transpose(1, 2).repeat_interleave(hq // hkv, 1), mask)
 
     # flash_prefill: the last 256-token chunk of a 2048-token prefix over the
     # full cache (timed); the 64-token suffix at 2048 over the ring it just
@@ -900,25 +964,128 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
                           n_split=_split_plan(1, hkv2, 1000, sm)[1]))
     del qh, kh, vh
     torch.cuda.synchronize()
-    bms, by = bound(nbytes(qd, k, v, kr, out), 4 * hq * dh * s)
-    qt, kt, vt, mask = sdpa_args(qd[:, None], k, v, kr,
-                                 torch.tensor([qp], device=dev))
-    ms = time_ms(lambda: flash_decode(qd, k, v, kr, qp, **kw), flush=flush)
-    def call():
-        return flash_decode(qd, k, v, kr, qp, **kw)
-    probe = dict(kernels_us=kernels_us(call, flush), kernels_us_warm=kernels_us(call))
-    res["flash_decode_dh256"] = dict(**probe,
+    res["flash_decode_dh256"] = dict(
         max_abs_err=max(c["max_abs_err"] for c in cases), tol=DECODE_TOL,
-        cases=cases, ms=ms,
-        plain_ms=time_ms(lambda: flash_decode_plain(qd, k, v, kr, qp, **kw),
-                         flush=flush),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=scale), flush=flush),
-        bound_ms=bms, bound_by=by, bound_share=bms / ms, n_split=n_split,
+        cases=cases, **decode_timing(qd, k, v, kr, qp, win, flush, sm),
         shape=f"q (1,{hq},{dh}) over a {s}-slot ring at position {qp}, window {win}, bf16")
-    del q, k, v, v2, qt, kt, vt, mask
+    del q, k, v, v2
 
     rglru_cases(dev, g, flush, res)
+
+
+# the dense configs' attention shapes the kernel phase checks: (entry
+# suffix, arch, Hq, Hkv, Dh)
+DENSE_SHAPES = (("dh64", "qwen1.5-0.5b", 16, 16, 64),
+                ("g3", "phi4-mini-3.8b", 24, 8, 128),
+                ("g12", "mistral-large-123b", 96, 8, 128))
+
+
+def dense_kernel_cases(dev, g, flush, res: dict):
+    """Both attention kernels at the dense configs' new shapes (Dh 64 with G
+    1, G 3 and G 12 at Dh 128), at the smoke's own positions: a 256-row
+    chunk at 3840 over 4096 keys and the serve's longest suffix, 64 rows at
+    4096 over 4176 slots, 4160-4175 empty (both timed), and decode at 4095
+    over 4096 slots (timed) and at 3999 over 4096 slots, 4000-4095 empty.
+    Slots no query may see hold V = 100.  Each prefill entry also checks
+    rows that see no slot, which take the mean of V (V N(0, 1)): a 256-row
+    chunk at 0 over 1024 slots, 512 at position 128 and 512 at 5000 (rows
+    0-127 see nothing), and under a 512-token window the 64-row suffix at
+    4096 over 4096 slots at position 100 but for 1024 at 4130 (rows
+    4096-4129 see nothing); at Dh 64 both split their keys, so the combine
+    kernel writes those rows (see ``empty_rows_check``)."""
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from repro_torch.kernels.flash_prefill import _plan, flash_prefill, flash_prefill_plain
+
+    bf = torch.bfloat16
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    def err(out, ref):
+        return float((out.float() - ref.float()).abs().max())
+
+    for tag, arch, hq, hkv, dh in DENSE_SHAPES:
+        scale = dh ** -0.5
+        s = 4096
+        k, v = randn(1, s, hkv, dh), randn(1, s, hkv, dh)
+        kpos = torch.arange(s, dtype=torch.int32, device=dev)
+        q = randn(1, 256, hq, dh)
+        cases = [dict(at=s - 256, rows=256, slots=s, max_abs_err=err(
+            flash_prefill(q, k, v, kpos, s - 256, scale=scale),
+            flash_prefill_plain(q, k, v, kpos, s - 256, scale=scale)))]
+        kpm = torch.full((1024,), 5000, dtype=torch.int32, device=dev)
+        kpm[:512] = 128
+        km, vm = k[:, :1024].contiguous(), v[:, :1024].contiguous()
+        cases.append(dict(at=0, rows=256, slots=1024, rows_seeing_nothing=128,
+                          **empty_rows_check(q, km, vm, kpm, 0, 0, 128)))
+        kpw = torch.full_like(kpos, 100)
+        kpw[:1024] = 4130
+        cases.append(dict(at=s, rows=64, slots=s, window=512, rows_seeing_nothing=34,
+                          **empty_rows_check(q[:, :64].contiguous(), k, v, kpw, s, 512, 34)))
+        for c in cases:
+            c["n_split"] = _plan(1, hkv, c["rows"], hq // hkv, c["slots"], sm)[1]
+        res[f"flash_prefill_{tag}"] = dict(
+            max_abs_err=max([cases[0]["max_abs_err"]]
+                            + [c["empty_rows_max_abs_err"] for c in cases[1:]]),
+            tol=PREFILL_TOL, arch=arch, cases=cases,
+            **prefill_timing(q, k, v, kpos, s - 256, 0, flush, sm),
+            shape=f"q (1,256,{hq},{dh}) over {s} keys, q_offset {s - 256}, bf16")
+        ks, vs = randn(1, 4176, hkv, dh), randn(1, 4176, hkv, dh)
+        kps = torch.arange(4176, dtype=torch.int32, device=dev)
+        kps[4160:] = -1
+        vs[:, 4160:] = 100.0
+        qs = randn(1, 64, hq, dh)
+        e = err(flash_prefill(qs, ks, vs, kps, 4096, scale=scale),
+                flash_prefill_plain(qs, ks, vs, kps, 4096, scale=scale))
+        res[f"flash_prefill_{tag}_suffix"] = dict(
+            max_abs_err=e, tol=PREFILL_TOL, arch=arch,
+            **prefill_timing(qs, ks, vs, kps, 4096, 0, flush, sm),
+            shape=f"q (1,64,{hq},{dh}) at q_offset 4096 over 4176 slots, "
+                  f"4160-4175 empty, bf16")
+        del ks, vs, qs
+        qd = randn(1, hq, dh)
+        cases = [dict(at=s - 1, valid=s, max_abs_err=err(
+            flash_decode(qd, k, v, kpos, s - 1, scale=scale),
+            flash_decode_plain(qd, k, v, kpos, s - 1, scale=scale)))]
+        kpm, vm = kpos.clone(), v.clone()
+        kpm[4000:] = -1
+        vm[:, 4000:] = 100.0
+        cases.append(dict(at=3999, valid=4000, max_abs_err=err(
+            flash_decode(qd, k, vm, kpm, 3999, scale=scale),
+            flash_decode_plain(qd, k, vm, kpm, 3999, scale=scale))))
+        torch.cuda.synchronize()
+        res[f"flash_decode_{tag}"] = dict(
+            max_abs_err=max(c["max_abs_err"] for c in cases), tol=DECODE_TOL,
+            arch=arch, cases=cases,
+            **decode_timing(qd, k, v, kpos, s - 1, 0, flush, sm),
+            shape=f"q (1,{hq},{dh}) over {s} slots, bf16")
+        del q, k, v, kpm, vm
+
+
+def empty_rows_check(q, k, v, kpos, q_off: int, window: int, n_empty: int) -> dict:
+    """flash_prefill against its plain version where the first ``n_empty``
+    rows see no slot.  Those rows (the mean of V, rounded to bf16 once on
+    each side) are held to PREFILL_TOL (``empty_rows_max_abs_err``).  The
+    rows after them attend to 512-1024 slots, not 3840-4096, so their
+    outputs are larger, and the two sides' bf16 roundings of the
+    probabilities alone can part them by more than PREFILL_TOL; they are
+    held to the rounding-model bound (``rounding_ratio`` <= 1) and, against
+    the same attention in f32, to no larger an error than the plain
+    version's, as the timed entries are."""
+    from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
+    kw = dict(scale=q.shape[-1] ** -0.5, window=window)
+    out = flash_prefill(q, k, v, kpos, q_off, **kw).float()
+    plain = flash_prefill_plain(q, k, v, kpos, q_off, **kw).float()
+    ref32 = flash_prefill_plain(q.float(), k.float(), v.float(), kpos, q_off, **kw)
+    return dict(
+        max_abs_err=float((out - plain).abs().max()),
+        empty_rows_max_abs_err=float((out - plain)[:, :n_empty].abs().max()),
+        err_vs_f32=float((out - ref32).abs().max()),
+        plain_err_vs_f32=float((plain - ref32).abs().max()),
+        **rounding_check(out, plain, flash_prefill_plain(
+            q.float(), k.float(), v.float().abs(), kpos, q_off, **kw)))
 
 
 def rglru_inputs(g, dev, bsz: int, sl: int, w: int = 2560, offset: int = 0):
@@ -1644,7 +1811,14 @@ def cli_phase(dev, card: str) -> dict:
     schedule captured (each of the five qwen3 kernels must launch); the
     capture replayed analytically (equal to it) with a Perfetto timeline,
     then on the card (verify on); full-width recurrentgemma-2b and rwkv6-7b
-    for real (their scan kernels must launch).  Prints one ``{"cli": ...}``
+    for real (their scan kernels must launch); the int8 qwen3-8b call again
+    with every opt-in (``--sanitize --telemetry --metrics-out
+    --timeline-out``: no violation, the sanitizer and telemetry blocks in
+    the report, telemetry's ``datapath.kernel_launches_total`` equal to the
+    datapath's transfer-run launches, which are the call's ``kv_restore``
+    launches less its resident-run copies, and the timeline's tier-bytes
+    counter tracks); llama3.1-8b and the MoE qwen3-30b-a3b in simulation;
+    llama3.1-8b for real from an int8 store.  Prints one ``{"cli": ...}``
     line: each call's wall seconds, its report's TTFT p50 and mean TPOT,
     and its launches by kernel."""
     import io
@@ -1656,6 +1830,8 @@ def cli_phase(dev, card: str) -> dict:
     os.makedirs(OUT_DIR, exist_ok=True)
     trace = os.path.join(OUT_DIR, "cli_qwen3_int8.trace.json")
     timeline = os.path.join(OUT_DIR, "cli_qwen3_int8.timeline.json")
+    metrics = os.path.join(OUT_DIR, "cli_qwen3_observed.metrics.json")
+    observed_timeline = os.path.join(OUT_DIR, "cli_qwen3_observed.timeline.json")
     calls = [
         ("sim", ["--requests", "64", "--workload", "swe_bench"], ()),
         ("real_qwen3", ["--real", "--arch", "qwen3-8b", "--requests", "4",
@@ -1665,6 +1841,14 @@ def cli_phase(dev, card: str) -> dict:
         ("real_hybrid", ["--real", "--arch", "recurrentgemma-2b", "--requests", "4"],
          HYBRID_KERNELS),
         ("real_rwkv", ["--real", "--arch", "rwkv6-7b", "--requests", "4"], RWKV_KERNELS),
+        ("real_qwen3_observed", ["--real", "--arch", "qwen3-8b", "--requests", "4",
+                                 "--kv-quant", "int8", "--sanitize", "--telemetry",
+                                 "--metrics-out", metrics, "--timeline-out",
+                                 observed_timeline], QWEN3_KERNELS),
+        ("sim_llama", ["--arch", "llama3.1-8b", "--requests", "64"], ()),
+        ("sim_moe", ["--arch", "qwen3-30b-a3b", "--requests", "64"], ()),
+        ("real_llama", ["--real", "--arch", "llama3.1-8b", "--requests", "4",
+                        "--kv-quant", "int8"], QWEN3_KERNELS),
     ]
     rows = []
     for name, argv, must_launch in calls:
@@ -1702,8 +1886,46 @@ def cli_phase(dev, card: str) -> dict:
                 raise AssertionError("cli timeline holds no event")
         if name.startswith("real") and stats.get("completed") != 4:
             raise AssertionError(f"cli {name}: {stats.get('completed')} of 4 completed")
+        if name == "real_qwen3_observed":
+            rows[-1].update(observed_check(report, launches, metrics, observed_timeline))
+            rows[-1]["unobserved_wall_s"] = next(r["wall_s"] for r in rows
+                                                 if r["call"] == "real_qwen3")
     print(json.dumps({"cli": rows}))
     return {r["call"]: r for r in rows}
+
+
+def observed_check(report: dict, launches: dict, metrics: str, timeline: str) -> dict:
+    """What the observed qwen3 call must show: the sanitizer's counters (it
+    raises SanitizerViolation on any drift, so reaching here means none),
+    telemetry's counters in the report and its snapshot in ``metrics``, the
+    datapath's launches counted alike by telemetry, the report and the
+    wrappers, and tier-bytes counter tracks in ``timeline``."""
+    counters = report.get("telemetry", {}).get("counters", {})
+    dp = report.get("datapath", {})
+    with open(metrics) as f:
+        snapshot = json.load(f)
+    with open(timeline) as f:
+        tracks = sorted({e["name"] for e in json.load(f)["traceEvents"]
+                         if e.get("ph") == "C" and e["name"].startswith("tier_bytes:")})
+    out = dict(sanitizer=report.get("sanitizer"),
+               kernel_launches_total=counters.get("datapath.kernel_launches_total"),
+               datapath_kernel_launches=dp.get("kernel_launches"),
+               resident_copies=dp.get("resident_copies"),
+               tier_tracks=tracks, snapshot_counters=len(snapshot["metrics"]["counters"]))
+    if not out["sanitizer"] or not out["sanitizer"].get("dispatches"):
+        raise AssertionError(f"observed call: no sanitizer counters: {out}")
+    transfer = launches["kv_restore"] - dp.get("resident_copies", 0)
+    if not (out["kernel_launches_total"] == dp.get("kernel_launches") == transfer
+            == launches["kv_dequantize_run"]):
+        raise AssertionError(f"observed call: telemetry's datapath.kernel_launches_total "
+                             f"{out['kernel_launches_total']} != transfer-run launches "
+                             f"(kv_restore {launches['kv_restore']} less resident copies "
+                             f"{dp.get('resident_copies')}, kv_dequantize run "
+                             f"{launches['kv_dequantize_run']})")
+    if not tracks or snapshot["metrics"]["counters"] != counters:
+        raise AssertionError(f"observed call: tier tracks {tracks}, snapshot counters "
+                             f"equal to the report's: {snapshot['metrics']['counters'] == counters}")
+    return out
 
 
 def promote_profile(dev, card: str) -> dict:
@@ -1927,6 +2149,154 @@ def rwkv_serve_phase(dev, card: str, profile: bool = False) -> dict:
     return result
 
 
+# (arch, layers run or None for all, int8 chunk store, prefixes) of the
+# dense phase: the two configs past one card's memory at full depth run at
+# full width, cut to 8 layers
+DENSE_SERVES = (
+    ("llama3.1-8b", None, True, (512, 1536, 2560, 4096)),
+    ("phi4-mini-3.8b", None, False, (512, 1536, 2560, 4096)),
+    ("qwen1.5-0.5b", None, False, (512, 1536, 2560, 4096)),
+    ("qwen1.5-110b", 8, False, (512, 1024, 1536, 2048)),
+    ("mistral-large-123b", 8, False, (512, 1024, 1536, 2048)),
+)
+DENSE_KERNELS = ("flash_prefill", "flash_decode")
+STORE_KERNELS = ("kv_restore", "kv_quantize", "kv_dequantize")
+
+
+def dense_phase(dev, card: str) -> dict:
+    """One real serve of each dense config the port added: bf16, random
+    weights from seed 0, verify on, the smoke's serve shape (4 requests at
+    t = 0, 64 new and 16 output tokens, chunk 256, 2 stages, l_delta 1024,
+    max_batch 2); llama3.1-8b from an int8 chunk store (so the three store
+    kernels run on its path), the others with no store.  Each serve is
+    served again with no quantized store (llama: twice from an unquantized
+    store) and its greedy tokens must not move.  One ``{"dense_serve": ...}``
+    line each."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ChunkStore, RealServingEngine, Request
+
+    results = {}
+    for arch, layers, int8, prefixes in DENSE_SERVES:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+        t0 = time.perf_counter()
+        model = Model(cfg, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                      device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+
+        def serve(quant):
+            store = (None if quant is None else
+                     ChunkStore(chunk_size=16, quant=quant, default_tier="host", device=dev))
+            eng = RealServingEngine(model, params, system="cacheflow", stages=2,
+                                    chunk_size=256, l_delta=1024, max_batch=2,
+                                    kvstore=store, datapath="fused", device=dev, seed=0)
+            reqs = [Request(f"r{n}", 0.0, n, 64, decode_len=16) for n in prefixes]
+            t0 = time.perf_counter()
+            rep = eng.serve(reqs, verify=True)
+            torch.cuda.synchronize()
+            tokens = {r.request_id: eng.executor.outputs(r.request_id)["tokens"] for r in reqs}
+            return eng, reqs, rep, tokens, time.perf_counter() - t0
+
+        # this path: every launch counter from 0 just before, read just after
+        zero_counters()
+        torch.cuda.reset_peak_memory_stats()
+        eng, reqs, rep, tokens, serve_s = serve("int8" if int8 else None)
+        launches = read_counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ex = eng.executor
+        errs = {r.request_id: ex.verify_errs.get(r.request_id, {}) for r in reqs}
+        bad = [r.request_id for r in reqs
+               if len(ex.outputs(r.request_id)["tokens"]) != r.decode_len
+               or not bool(torch.isfinite(ex.outputs(r.request_id)["first_logits"]).all())
+               or not {"k", "v", "kpos"} <= set(errs[r.request_id])]
+        del eng
+        if int8:
+            tokens_a = serve("none")[3]
+            tokens_b = serve("none")[3]
+        else:
+            tokens_a, tokens_b = tokens, serve(None)[3]
+        diff = first_difference(tokens_a, tokens_b)
+        out = dict(
+            card=card, arch=arch, layers=cfg.num_layers, config_layers=full.num_layers,
+            cut=None if layers is None else f"{layers} of {full.num_layers} layers, full width",
+            d_model=cfg.d_model, hq=cfg.num_heads, hkv=cfg.num_kv_heads, dh=cfg.head_dim,
+            params=model.num_params(params), init_s=init_s, serve_s=serve_s,
+            ttft_p50_s=rep.stats["p50"], tpot_mean_s=rep.stats["tpot_mean"],
+            serve_wall_s=rep.stats["serve_wall"], completed=rep.stats["completed"],
+            peak_mem_gb=peak_gb, store="int8" if int8 else None,
+            verify_max_err=max(x for e in errs.values() for x in e.values()),
+            verified=sorted(r for r, e in errs.items() if e),
+            strategies={r.request_id: ex._live[r.request_id]["plans"][0].strategy
+                        for r in reqs},
+            tokens_stable=diff is None, tokens_first_difference=diff,
+            launches={k: v for k, v in launches.items() if v})
+        print(json.dumps({"dense_serve": out}))
+        results[arch] = dict(out, launches=launches)
+        del model, params, ex
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rep.stats["completed"] != 4 or bad:
+            raise AssertionError(f"{arch}: {rep.stats['completed']} of 4 completed, "
+                                 f"bad outputs or unverified requests {bad}")
+        missing = [n for n in DENSE_KERNELS + (STORE_KERNELS if int8 else ())
+                   if launches[n] == 0]
+        if missing:
+            raise AssertionError(f"{arch}: kernels not launched during its serve: {missing}")
+        if diff is not None:
+            raise AssertionError(f"{arch}: greedy tokens moved between two unquantized "
+                                 f"serves at {diff}")
+    return results
+
+
+def sanitizer_cow_check(dev, card: str) -> dict:
+    """The sanitizer's copy-on-write check on the card: a BlockPool of CUDA
+    tensors, one block written, then ``pool.copy`` through the sanitizer's
+    wrapper (snapshot by clone, compare by torch.equal on the device);
+    ``cow_checks`` must read 1, the copy must equal its parent, and the
+    wrapper must unwrap at run end."""
+    import torch
+    from repro_torch.analysis.sanitizer import EngineSanitizer
+    from repro_torch.models.kvcache import BlockPool
+
+    class Store:
+        def __init__(self, pool):
+            self.pool = pool
+
+        def audit(self):
+            self.pool.audit()
+
+    class Core:
+        max_active = 0
+
+        def __init__(self, kvstore):
+            self.kvstore = kvstore
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    pool = BlockPool(16)
+    bid = pool.alloc({"k": torch.randn(36, 1, 16, 8, 128, generator=g, device=dev).to(torch.bfloat16),
+                      "v": torch.randn(36, 1, 16, 8, 128, generator=g, device=dev).to(torch.bfloat16),
+                      "kpos": torch.arange(16, dtype=torch.int32, device=dev).expand(36, 16)})
+    original = pool.copy
+    san = EngineSanitizer(Core(Store(pool)))
+    san.bind(ops_log=[], busy_comp={0: 0.0}, busy_io={0: 0.0})
+    new = pool.copy(bid)
+    equal = all(torch.equal(pool.read(bid)[f], pool.read(new)[f]) for f in ("k", "v", "kpos"))
+    san.on_run_end(active=set(), pending=[], suspended=set())
+    out = dict(card=card, device=str(pool.read(new)["k"].device), cow_checks=san.counters.cow_checks,
+               copy_equal=equal, unwrapped=pool.copy == original)
+    print(json.dumps({"cow_check": out}))
+    if not (out["cow_checks"] == 1 and equal and out["unwrapped"]
+            and out["device"].startswith("cuda")):
+        raise AssertionError(f"sanitizer CoW check on the card: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1989,7 +2359,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kres = kernel_phase(dev, card)
     print(json.dumps({"kernel_phase_s": time.perf_counter() - t0}))
-    sres = hres = rres = None
+    sres = hres = rres = dres = None
     if args.decode_sweep:
         decode_sweep(dev)
     if args.prefill_sweep:
@@ -2013,7 +2383,9 @@ def main(argv=None) -> int:
         rres = rwkv_serve_phase(dev, card, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
+        dres = dense_phase(dev, card)
         cli_phase(dev, card)
+        sanitizer_cow_check(dev, card)
 
     # (kernel-phase entry, source, TPU kernel, the serve whose shapes it has)
     fp = ("src/repro_torch/csrc/flash_prefill.cu",
@@ -2038,12 +2410,19 @@ def main(argv=None) -> int:
               "src/repro/kernels/rwkv6_scan/kernel.py:56", rres),
              ("wkv6_step", "src/repro_torch/csrc/wkv6.cu",
               "src/repro/kernels/rwkv6_scan/kernel.py:56", rres)]
+    for tag, arch, *_ in DENSE_SHAPES:
+        served = dres[arch] if dres else None
+        table += [(f"flash_prefill_{tag}", *fp, served),
+                  (f"flash_prefill_{tag}_suffix", *fp, served),
+                  (f"flash_decode_{tag}", *fd, served)]
     rows = []
     for name, src, replaces, served in table:
         k = kres[name]
         # the suffix and raw entries time the same wrapper: its count covers
         # both (kv_dequantize_run counts the run form apart)
-        counter = name.replace("_dh256", "").replace("_suffix", "").replace("_raw", "")
+        counter = name
+        for tag in ("_dh256", "_dh64", "_g3", "_g12", "_suffix", "_raw"):
+            counter = counter.replace(tag, "")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": served["launches"][counter] if served else None,
@@ -2053,7 +2432,7 @@ def main(argv=None) -> int:
                      "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"),
                      "bound_share": k["bound_ms"] / k["ms"],
                      **{x: k[x] for x in ("kernels_us", "cluster", "branch", "plan", "unit",
-                                          "rows_a_thread") if x in k}})
+                                          "rows_a_thread", "rounding_ratio") if x in k}})
         if name == "rglru_scan" and served:
             rows[-1]["launches_by_S"] = served["rglru_scan_launches_by_S"]
     print(json.dumps({"kernels": rows}))

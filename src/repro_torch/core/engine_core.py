@@ -575,7 +575,7 @@ class EngineCore:
         self.admission = admission
         self.prefetch = prefetch
         self.strict = strict
-        # opt-in runtime invariant sanitizer (not yet ported: run() raises).
+        # opt-in runtime invariant sanitizer (repro_torch.analysis.sanitizer).
         # None defers to the CACHEFLOW_SANITIZE env var; every hook in the
         # loop is behind an `if san is not None` guard, so the default-off
         # path adds zero work (measured: benchmarks/restore_datapath.py).
@@ -586,12 +586,12 @@ class EngineCore:
         # the sanitizer of the most recent run (its counters are the serve
         # observable); None when sanitizing is off
         self.last_sanitizer = None
-        # opt-in telemetry (not yet ported: run() raises), same convention as the
+        # opt-in telemetry (repro_torch.obs.telemetry), same convention as the
         # sanitizer: None defers to CACHEFLOW_TELEMETRY, True builds a fresh
         # Telemetry per run, or pass a prebuilt Telemetry instance.  Hooks
         # are pure observers behind `if tel is not None` guards, so the
         # off path costs nothing and the on path is bit-identical on
-        # EngineResult/ops_log (tests/test_obs.py).
+        # EngineResult/ops_log (tests/test_torch_telemetry.py).
         if telemetry is None:
             telemetry = os.environ.get(
                 "CACHEFLOW_TELEMETRY", "0").lower() not in ("", "0", "false")
@@ -635,15 +635,21 @@ class EngineCore:
             requests = [r for r in requests if r.plans]
 
         now = 0.0
-        # the sanitizer and telemetry packages are not ported yet: asking
-        # for either raises instead of silently running unchecked
-        if self.sanitize:
-            raise NotImplementedError("engine sanitizer: not yet ported")
-        if self.telemetry:
-            raise NotImplementedError("engine telemetry: not yet ported")
         san = None
+        if self.sanitize:
+            # lazy import: the analysis package never loads on the default
+            # (sanitize=False) path
+            from repro_torch.analysis.sanitizer import EngineSanitizer
+            san = EngineSanitizer(self)
         self.last_sanitizer = san
         tel = None
+        if self.telemetry:
+            # lazy import, same as the sanitizer: repro_torch.obs.telemetry
+            # never loads on the default (telemetry off) path
+            from repro_torch.obs.telemetry import Telemetry
+            tel = self.telemetry if isinstance(self.telemetry, Telemetry) \
+                else Telemetry()
+            tel.begin(self)
         self.last_telemetry = tel
         # the candidate channel's duration multiplier, set by the dispatch
         # loop before each next_io() pass so the benefit gate prices the

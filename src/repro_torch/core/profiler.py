@@ -8,9 +8,10 @@ A copy of ``repro.core.profiler``.  Two profiling modes:
     its device (on a card, the crossover of the model as served; on the
     CPU, that the crossover exists and is content-agnostic).
 
-:class:`SanitizerCounters` is the runtime sanitizer's running tally —
-dispatch/claim/abort/preemption totals and high-water marks — kept here for
-the sanitizer, which is not ported yet.
+:class:`SanitizerCounters` is the runtime sanitizer's
+(``repro_torch.analysis.sanitizer``) running tally —
+dispatch/claim/abort/preemption totals and high-water marks — surfaced by
+``launch/serve.py --sanitize`` in the report.
 """
 from __future__ import annotations
 

@@ -6,10 +6,10 @@
 // window > 0), so ring-buffer caches work exactly.  Online softmax in f32.
 //
 // What bounds it on the H100: decode reads the whole cache once for one
-// token and does G = Hq / Hkv multiply-adds per K or V element read (4 at
-// qwen3-8b, 10 at RecurrentGemma), far below the ~295 FLOP per byte where
-// the tensor cores would become the limit: device-memory bandwidth bounds
-// it.  A 4096-slot cache at Hkv 8, Dh 128 is 16.8 MB per layer, 5 us at
+// token and does G = Hq / Hkv multiply-adds per K or V element read (1 to
+// 12 on the dense configs, 10 at RecurrentGemma), far below the ~295 FLOP
+// per byte where the tensor cores would become the limit: device-memory
+// bandwidth bounds it.  A 4096-slot cache at Hkv 8, Dh 128 is 16.8 MB per layer, 5 us at
 // 3.35 TB/s; RecurrentGemma's 2048-slot window at Hkv 1, Dh 256 is 2.1 MB,
 // 0.6 us, less than a launch costs.  What it needs is bytes in flight
 // across the whole card and short dependency chains, so the design is a
@@ -21,8 +21,8 @@
 //    heads, so every K/V byte is read from device memory once, as in the
 //    TPU kernel.  The split plan (repro_torch.kernels.flash_decode.
 //    _split_plan) aims at four blocks per SM.  K, V and kpos tiles are
-//    staged through a two-stage ring in shared memory (35 KB at Dh 128, 68
-//    KB at Dh 256, dynamic shared memory) with cp.async (16-byte copies for
+//    staged through a two-stage ring in shared memory (18 KB at Dh 64, 35
+//    KB at Dh 128, 68 KB at Dh 256, dynamic shared memory) with cp.async (16-byte copies for
 //    K/V, 4-byte for kpos), the next tile's copies in flight while the
 //    current one is used.  A tile with no visible slot is skipped (its
 //    bytes were read).  A warp per query head, a lane per slot: lane j
@@ -30,16 +30,20 @@
 //    from shared memory; K rows are padded by 16 bytes so the lanes' rows
 //    fall in distinct banks), so no shuffle reduction is needed for a
 //    score; the warp's online softmax takes 5 shuffles for the max and 5
-//    for the sum, and lane l keeps Dh/32 output columns in registers.  The
+//    for the sum, and lane l keeps Dh/32 output columns (2, 4 or 8) in
+//    registers.  The
 //    only block barriers of a tile guard the ring.  A block writes, for
 //    each head, its split's running max m, sum l and unnormalised
 //    accumulator acc to f32 scratch — also for a split with no visible
 //    slot (m = -inf, l = 0, acc = 0), so no memset is needed.  A block
 //    has 4, 10 or 16 warps (G rounded up; the spare warps only copy);
 //    past 16, the heads of a KV head are cut into groups of 16 along grid
-//    y (not on the model paths: G is 4 and 10).
+//    y (not on the model paths: G is 1, 3, 4, 8, 10 and 12).  G 1
+//    (qwen1.5-0.5b's MHA) leaves three of four warps copying only, G 3 one
+//    of four, G 8 two of ten and G 12 four of sixteen: correct, and a cost
+//    that PERF.md records per case.
 // 2. `flash_decode_combine_kernel`, one block per (query head, batch row,
-//    64 columns): M = max_s m_s, out = sum_s e^{m_s-M} acc_s /
+//    64 columns; one at Dh 64): M = max_s m_s, out = sum_s e^{m_s-M} acc_s /
 //    max(sum_s e^{m_s-M} l_s, 1e-30), rounded to bf16 once.  A split with
 //    m = -inf adds 0 (never exp(-inf - -inf)).  A row where every split
 //    has m = -inf (no visible slot at all) takes what the plain version's
@@ -120,8 +124,8 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                           float scale, int n_split, int split_slots) {
   constexpr int NT = 32 * GMAX, BK = FD_TILE, STAGES = FD_STAGES;
   constexpr int ROW = fd_row<DH>();
-  constexpr int DPL = DH / 32;       // output columns a lane owns: 4 or 8
-  static_assert(BK == 32 && (DPL == 4 || DPL == 8), "DH must be 128 or 256");
+  constexpr int DPL = DH / 32;       // output columns a lane owns: 2, 4 or 8
+  static_assert(BK == 32 && (DPL == 2 || DPL == 4 || DPL == 8), "DH must be 64, 128 or 256");
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [STAGES][BK][ROW]
@@ -226,9 +230,12 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
           float vf[8];
           if constexpr (DPL == 8) {
             unpack8(*reinterpret_cast<const uint4*>(vcol + (j4 + u) * ROW), vf);
-          } else {
+          } else if constexpr (DPL == 4) {
             const uint2 w = *reinterpret_cast<const uint2*>(vcol + (j4 + u) * ROW);
             unpack8(make_uint4(w.x, w.y, 0u, 0u), vf);
+          } else {
+            const uint32_t w = *reinterpret_cast<const uint32_t*>(vcol + (j4 + u) * ROW);
+            unpack8(make_uint4(w, 0u, 0u, 0u), vf);
           }
 #pragma unroll
           for (int e = 0; e < DPL; ++e) acc[e] = fmaf(pj[u], vf[e], acc[e]);
@@ -243,10 +250,15 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   // when no slot of the split was visible)
   if (head) {
     const size_t row = ((size_t)b * Hq + h0 + warp) * n_split + split;
-    float4* dst = reinterpret_cast<float4*>(acc_part + row * DH + lane * DPL);
+    float* dst = acc_part + row * DH + lane * DPL;
+    if constexpr (DPL % 4 == 0) {
 #pragma unroll
-    for (int e = 0; e < DPL / 4; ++e)
-      dst[e] = make_float4(acc[4 * e], acc[4 * e + 1], acc[4 * e + 2], acc[4 * e + 3]);
+      for (int e = 0; e < DPL / 4; ++e)
+        reinterpret_cast<float4*>(dst)[e] =
+            make_float4(acc[4 * e], acc[4 * e + 1], acc[4 * e + 2], acc[4 * e + 3]);
+    } else {
+      *reinterpret_cast<float2*>(dst) = make_float2(acc[0], acc[1]);
+    }
     if (lane == 0) {
       m_part[row] = m;
       l_part[row] = l;
@@ -394,7 +406,7 @@ int launch(const void* q, const void* k, const void* v, const void* kpos,
 // out (B, Hq, Dh) bf16, through f32 scratch m/l (B, Hq, n_split) and acc
 // (B, Hq, n_split, Dh).  The cache is cut into n_split splits of
 // split_slots slots (a multiple of FD_TILE; the last one ragged).  Dh is
-// 128 or 256; Hq must be a multiple of Hkv.  Two kernels on `stream`.
+// 64, 128 or 256; Hq must be a multiple of Hkv.  Two kernels on `stream`.
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* kpos, void* out, void* m_part,
                                  void* l_part, void* acc_part, int B, int S,
@@ -406,14 +418,16 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
       (long)(n_split - 1) * split_slots >= S || (long)n_split * split_slots < S)
     return (int)cudaErrorInvalidValue;
   float *m = (float*)m_part, *l = (float*)l_part, *acc = (float*)acc_part;
-  // a block holds 4 (qwen3-8b), 10 (RecurrentGemma) or 16 query heads, a
-  // warp each: the fewest that take all G; past 16 the heads of a KV head
-  // are cut into groups of 16
+  // a block holds 4 (G 1-4: qwen1.5-0.5b, phi4-mini, qwen3-8b, llama3.1-8b),
+  // 10 (G 5-10: qwen1.5-110b, RecurrentGemma) or 16 (G 11-16: mistral-large)
+  // query heads, a warp each: the fewest that take all G; past 16 the heads
+  // of a KV head are cut into groups of 16
   const int G = Hq / Hkv;
 #define FD_ARGS q, k, v, kpos, out, m, l, acc, B, S, Hq, Hkv, q_pos, window, \
                 scale, n_split, split_slots, st
 #define FD_PICK(DH) (G <= 4 ? launch<DH, 4>(FD_ARGS) \
                      : G <= 10 ? launch<DH, 10>(FD_ARGS) : launch<DH, 16>(FD_ARGS))
+  if (Dh == 64) return FD_PICK(64);
   if (Dh == 128) return FD_PICK(128);
   if (Dh == 256) return FD_PICK(256);
 #undef FD_PICK

@@ -19,27 +19,33 @@
 // is 17.2 GFLOP of visible (query, key) products over 21 MB of inputs, 17
 // us at 989 TFLOP/s against 6 us for the bytes; recurrentgemma-2b's (Hq
 // 10, Hkv 1, Dh 256, 256 rows over a 2048-slot ring, window 2048) 5.0
-// GFLOP over 3.4 MB, 5 us against 1 us.  What the design does about it:
+// GFLOP over 3.4 MB, 5 us against 1 us; qwen1.5-0.5b's (Hq = Hkv = 16, Dh
+// 64, the same chunk as qwen3's) 4.2 GFLOP over 18 MB, 4 us against 5 us:
+// there the bytes bound it.  What the design does about it:
 //
 // 1. Pack the G query heads of a KV head into the row dimension.  A block
 //    owns an M tile of 64 (query row, head) pairs of one KV head, ordered
 //    p = i * G + g, and one split of the cache; every K/V tile it stages
 //    feeds all 64 pairs.  A pair knows its own row and so its own query
-//    position: G = 10 packs as well as G = 4.
+//    position: G = 10 packs as well as G = 4, and where 64 is no multiple
+//    of G (3, 10, 12) a query row's heads straddle two M tiles, each pair
+//    still a whole softmax of its own.
 // 2. Both products on the tensor cores with wgmma (sm_90a): the block's
 //    64 pairs are the M of m64n64k16 for S = Q K^T (Q and K from shared
-//    memory) and of m64n{Dh}k16 for O += P V (P from registers, V from
-//    shared memory, transposed).  Tiles are staged in the 128-byte-swizzled
+//    memory) and of m64n{Dh}k16, Dh 64, 128 or 256, for O += P V (P from
+//    registers, V from shared memory, transposed).  Tiles are staged in the 128-byte-swizzled
 //    layout the matrix descriptors name.  Scores, the online softmax and O
 //    stay in registers (the accumulator layout is mma.sync's, a warp per
 //    16 pairs).
-// 3. Two warpgroups a block at Dh 128.  One warpgroup alone leaves the
-//    tensor cores idle while it runs its softmax; at Dh 128 each block has
-//    two, which walk alternate live tiles of the block's split with their
-//    own online softmax and merge (m, l, O) through shared memory at the
-//    end — a split of the cache inside the block, with no partials in
-//    device memory.  At Dh 256 the O accumulators take 128 registers a
-//    thread and K/V tiles twice the shared memory: one warpgroup a block.
+// 3. Two warpgroups a block at Dh 64 and 128.  One warpgroup alone leaves
+//    the tensor cores idle while it runs its softmax; at Dh 64 and 128 each
+//    block has two, which walk alternate live tiles of the block's split
+//    with their own online softmax and merge (m, l, O) through shared memory
+//    at the end — a split of the cache inside the block, with no partials
+//    in device memory.  At Dh 64 the O accumulators take 32 registers a
+//    thread (64 at Dh 128), so the registers allow it as well as at 128.
+//    At Dh 256 the O accumulators take 128 registers a thread and K/V tiles
+//    twice the shared memory: one warpgroup a block.
 // 4. Fill the card.  The plan (repro_torch.kernels.flash_prefill._plan)
 //    splits the cache across blocks only where the M tiles alone leave SMs
 //    idle: qwen3's 256-row chunk is 8 x 16 = 128 blocks and no split; the
@@ -102,6 +108,15 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
+// d (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t a[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 // d (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t a[4], uint64_t db) {
   asm volatile(
@@ -134,12 +149,12 @@ __device__ __forceinline__ float uniform_weight(int S) {
 // Shared memory of a block: the K and V rings (STAGES tiles a warpgroup),
 // the Q tile, the kpos ring, then per tile of the split its flags and the
 // list of live tiles.  A staged tile of 64 rows (slots or pairs) is laid
-// out as the matrix descriptors name it: Dh/64 regions of 64 rows x 128
-// bytes, 16-byte chunk c of row r at ((c ^ (r % 8)) * 16) in its row, each
-// region 1024-byte aligned.
+// out as the matrix descriptors name it: Dh/64 regions (one at Dh 64) of 64
+// rows x 128 bytes, 16-byte chunk c of row r at ((c ^ (r % 8)) * 16) in its
+// row, each region 1024-byte aligned.
 template <int DH>
 struct Layout {
-  static constexpr int NWG = DH == 128 ? 2 : 1;   // warpgroups a block
+  static constexpr int NWG = DH <= 128 ? 2 : 1;   // warpgroups a block (point 3)
   static constexpr int NT = 128 * NWG;
   static constexpr int STAGES = 2;
   static constexpr size_t tile = (size_t)FP_BK * DH * 2;
@@ -396,7 +411,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int k2 = 0; k2 < BK / 16; ++k2) {
       const uint64_t dv = sw128_desc(Vt + k2 * 2048, 64 * 128, 1024);
-      if constexpr (DH == 128) wgmma_rs_n128(&o[0][0], pa[k2], dv);
+      if constexpr (DH == 64) wgmma_rs_n64(&o[0][0], pa[k2], dv);
+      else if constexpr (DH == 128) wgmma_rs_n128(&o[0][0], pa[k2], dv);
       else wgmma_rs_n256(&o[0][0], pa[k2], dv);
     }
     wgmma_commit();
@@ -533,7 +549,7 @@ flash_prefill_combine_kernel(const float* __restrict__ m_part,
                              const __nv_bfloat16* __restrict__ v,
                              __nv_bfloat16* __restrict__ out, int rows, int Sq,
                              int S, int Hq, int Hkv, int G, int n_split) {
-  constexpr int DPL = DH / 32;   // columns a lane owns: 4 or 8
+  constexpr int DPL = DH / 32;   // columns a lane owns: 2, 4 or 8
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * FC_WARPS + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -561,14 +577,20 @@ flash_prefill_combine_kernel(const float* __restrict__ m_part,
       const float ms = m_part[r0 + s];
       const float w = ms == -INFINITY ? 0.f : exp2f(ms - M);
       den = fmaf(w, l_part[r0 + s], den);
-      const float4* a = reinterpret_cast<const float4*>(acc_part + (r0 + s) * DH + lane * DPL);
+      const float* a = acc_part + (r0 + s) * DH + lane * DPL;
+      if constexpr (DPL % 4 == 0) {
 #pragma unroll
-      for (int e = 0; e < DPL / 4; ++e) {
-        const float4 x = a[e];
-        num[4 * e] = fmaf(w, x.x, num[4 * e]);
-        num[4 * e + 1] = fmaf(w, x.y, num[4 * e + 1]);
-        num[4 * e + 2] = fmaf(w, x.z, num[4 * e + 2]);
-        num[4 * e + 3] = fmaf(w, x.w, num[4 * e + 3]);
+        for (int e = 0; e < DPL / 4; ++e) {
+          const float4 x = reinterpret_cast<const float4*>(a)[e];
+          num[4 * e] = fmaf(w, x.x, num[4 * e]);
+          num[4 * e + 1] = fmaf(w, x.y, num[4 * e + 1]);
+          num[4 * e + 2] = fmaf(w, x.z, num[4 * e + 2]);
+          num[4 * e + 3] = fmaf(w, x.w, num[4 * e + 3]);
+        }
+      } else {   // Dh 64: a lane's two columns in one 8-byte load
+        const float2 x = *reinterpret_cast<const float2*>(a);
+        num[0] = fmaf(w, x.x, num[0]);
+        num[1] = fmaf(w, x.y, num[1]);
       }
     }
     scale = 1.f / fmaxf(den, 1e-30f);
@@ -619,7 +641,7 @@ int launch(const void* q, const void* k, const void* v, const void* kpos,
 // split_slots slots (a multiple of the 64-slot tile; the last one ragged);
 // with n_split > 1 the splits' f32 partials go through m/l (B, Sq, Hq,
 // n_split) and acc (B, Sq, Hq, n_split, Dh), and a second kernel combines
-// them.  Dh is 128 or 256; Hq must be a multiple of Hkv.
+// them.  Dh is 64, 128 or 256; Hq must be a multiple of Hkv.
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   const void* kpos, void* out, void* m_part,
                                   void* l_part, void* acc_part, int B, int Sq,
@@ -631,6 +653,9 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
       (long)(n_split - 1) * split_slots >= S || (long)n_split * split_slots < S)
     return (int)cudaErrorInvalidValue;
   float *m = (float*)m_part, *l = (float*)l_part, *acc = (float*)acc_part;
+  if (Dh == 64)
+    return launch<64>(q, k, v, kpos, out, m, l, acc, B, Sq, S, Hq, Hkv,
+                      q_offset, window, scale, n_split, split_slots, st);
   if (Dh == 128)
     return launch<128>(q, k, v, kpos, out, m, l, acc, B, Sq, S, Hq, Hkv,
                        q_offset, window, scale, n_split, split_slots, st);

@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (128, 256)       # head dims the kernel is built for
+HEAD_DIMS = (64, 128, 256)   # head dims the kernel is built for
 TILE = 32                    # slots per tile: FD_TILE in flash_decode.cu
 BLOCKS_PER_SM = 4            # what the split plan aims at (see _split_plan)
 
@@ -68,27 +68,28 @@ def flash_decode_plain(q, k, v, kpos, q_pos: int, *, scale: float,
 
 
 def flash_decode(q, k, v, kpos, q_pos: int, *, scale: float, window: int = 0):
-    """The kernel on a CUDA tensor (bf16, Dh 128 or 256, Hq a multiple of
+    """The kernel on a CUDA tensor (bf16, Dh 64, 128 or 256, Hq a multiple of
     Hkv), the plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kpos, q_pos, scale=scale,
                                   window=window)
-    # layout before device: a strided view is refused whatever it lies on
+    # layout, types and shapes before device: refused whatever they lie on
     if not all(t.is_contiguous() for t in (q, k, v, kpos)):
         raise ValueError("flash_decode: q, k, v and kpos must be contiguous "
                          "(the kernel addresses dense (B, S, Hkv, Dh) rows)")
-    _build.require_cuda("flash_decode", q, k, v, kpos)
     b, hq, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError("flash_decode: the kernel takes bf16 q/k/v")
+        raise ValueError("flash_decode: the CUDA kernel takes bf16 q/k/v")
     if kpos.dtype != torch.int32 or tuple(kpos.shape) != (s,):
-        raise ValueError("flash_decode: kpos must be int32 of shape (S,)")
+        raise ValueError("flash_decode: the CUDA kernel takes kpos as int32 of "
+                         "shape (S,)")
     if (dh not in HEAD_DIMS or k.shape != v.shape or k.shape[0] != b
             or k.shape[3] != dh or hq % hkv):
-        raise ValueError(f"flash_decode: unsupported shapes q {tuple(q.shape)}"
-                         f" k {tuple(k.shape)} (Dh 128 or 256, Hq a multiple "
-                         f"of Hkv)")
+        raise ValueError(f"flash_decode: the CUDA kernel does not take q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} (Dh 64, 128 or 256, "
+                         f"Hq a multiple of Hkv)")
+    _build.require_cuda("flash_decode", q, k, v, kpos)
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_decode: q, k and v must be 16-byte aligned")
     split_slots, n_split = _split_plan(b, hkv, s, _sm_count(q.device.index))

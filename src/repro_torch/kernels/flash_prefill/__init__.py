@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (128, 256)       # head dims the kernel is built for
+HEAD_DIMS = (64, 128, 256)   # head dims the kernel is built for
 M_TILE = 64                  # (row, head) pairs a block: FP_M in flash_prefill.cu
 TILE = 64                    # slots a key tile: FP_BK in flash_prefill.cu
 FILL = 15 / 16               # share of the SMs the M tiles must fill unsplit
@@ -84,7 +84,7 @@ def flash_prefill_plain(q, k, v, kpos, q_offset: int, *, scale: float,
 
 def flash_prefill(q, k, v, kpos, q_offset: int, *, scale: float,
                   window: int = 0):
-    """The kernel on a CUDA tensor (bf16, Dh 128 or 256, Hq a multiple of
+    """The kernel on a CUDA tensor (bf16, Dh 64, 128 or 256, Hq a multiple of
     Hkv), the plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, kpos, q_offset, scale=scale,
@@ -103,7 +103,7 @@ def flash_prefill(q, k, v, kpos, q_offset: int, *, scale: float,
     if (dh not in HEAD_DIMS or k.shape != v.shape or k.shape[0] != b
             or k.shape[3] != dh or hq % hkv or sq == 0 or s == 0):
         raise ValueError(f"flash_prefill: the CUDA kernel does not take q "
-                         f"{tuple(q.shape)} k {tuple(k.shape)} (Dh 128 or 256, "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} (Dh 64, 128 or 256, "
                          f"Hq a multiple of Hkv)")
     _build.require_cuda("flash_prefill", q, k, v, kpos)
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:

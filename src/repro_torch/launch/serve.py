@@ -11,8 +11,12 @@ KV store (content-addressed dedup across hbm/host/disk tiers; see DESIGN.md
 ``--store-dir`` materializes the disk tier as .npz files, ``--evict`` drops
 (instead of parks) preempted caches and restarts them from the store.  On
 the default ``--device cuda`` the named config runs at FULL width in bf16
-(the attention kernels take head_dim 128/256 in bf16, which ``.reduced()``
-is not); ``--device cpu`` runs ``.reduced()`` in f32, as the reference does:
+(the attention kernels take head_dim 64/128/256 in bf16, which
+``.reduced()`` is not) and is refused before anything is allocated when its
+bf16 weights exceed the card's free memory; ``--device cpu`` runs
+``.reduced()`` in f32, as the reference does.  Simulation takes every arch
+of the registry; ``--real`` exits naming the missing module for an arch
+whose family is not ported yet (MLA, MoE, embedding input):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --real \
       --requests 4 --system cacheflow --kv-quant int8
   PYTHONPATH=src python -m repro_torch.launch.serve --real --device cpu \
@@ -29,21 +33,26 @@ either package replays the other's.  On-device replay needs a trace whose
 geometry fits the model built on that device — capture it with ``--real
 --trace-out`` on the same device.
 
-Captured traces lint offline with
+Correctness tooling (see DESIGN.md §14): ``--sanitize`` (or
+``CACHEFLOW_SANITIZE=1``) runs the engine under the runtime invariant
+sanitizer and prints its counters in the report.  Captured traces lint
+offline with
   PYTHONPATH=src python -m repro_torch.analysis.lint_trace t.json
-and ``--timeline-out t.json`` exports a Chrome trace-event timeline loadable
-in https://ui.perfetto.dev (any captured trace renders offline with
-``python -m repro_torch.obs.timeline t.json``).
+and the port's static lint pass runs with
+  PYTHONPATH=src python -m repro_torch.analysis.codelint
 
-Not ported yet, so asking for them exits with an error naming the module:
-``--sanitize`` / ``CACHEFLOW_SANITIZE=1`` (repro_torch.analysis.sanitizer)
-and ``--telemetry`` / ``--metrics-out`` / ``CACHEFLOW_TELEMETRY=1``
-(repro_torch.obs.telemetry).
+Observability (see DESIGN.md §15): ``--telemetry`` (or
+``CACHEFLOW_TELEMETRY=1``) collects the engine-wide metrics registry
+(queue depth, batch sizes, gate outcomes, per-channel GB/s, tier
+occupancy, per-request phase timestamps) into the report;
+``--metrics-out m.json`` writes the snapshot to a file and
+``--timeline-out t.json`` exports a Chrome trace-event timeline loadable
+in https://ui.perfetto.dev.  Any captured trace renders offline with
+  PYTHONPATH=src python -m repro_torch.obs.timeline t.json
 """
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 from repro_torch.config import HARDWARE, IO_BANDWIDTHS
@@ -56,31 +65,33 @@ from repro_torch.serving.metrics import dumps_report
 from repro_torch.serving.workloads import WORKLOADS
 
 
-def _env_on(name: str) -> bool:
-    """EngineCore's reading of its opt-in environment switches."""
-    return os.environ.get(name, "0").lower() not in ("", "0", "false")
-
-
-def _refuse_unported(args) -> None:
-    if args.sanitize or _env_on("CACHEFLOW_SANITIZE"):
-        raise SystemExit("--sanitize / CACHEFLOW_SANITIZE=1: the runtime "
-                         "sanitizer (repro_torch.analysis.sanitizer) is not "
-                         "ported yet")
-    if args.telemetry or args.metrics_out or _env_on("CACHEFLOW_TELEMETRY"):
-        raise SystemExit("--telemetry / --metrics-out / CACHEFLOW_TELEMETRY=1: "
-                         "engine telemetry (repro_torch.obs.telemetry) is not "
-                         "ported yet")
-
-
 def _real_config(arch: str, device):
     """(cfg, device) of ``--real``: the named config at full width on a card
-    (the attention kernels take head_dim 128/256 in bf16, which
+    (the attention kernels take head_dim 64/128/256 in bf16, which
     ``.reduced()`` is not), ``.reduced()`` on the CPU as in the reference.
-    A CUDA device without a card raises."""
-    from repro_torch.models.model import resolve_device
-    dev = resolve_device(device)
+    Exits naming the missing module for an arch whose family is not ported,
+    and, on a card, for a config whose bf16 weights exceed the card's free
+    memory, before anything is allocated.  A CUDA device without a card
+    raises."""
+    from repro_torch.models.model import resolve_device, unported_modules
     cfg = get_config(arch)
-    return (cfg if dev.type == "cuda" else cfg.reduced()), dev
+    missing = unported_modules(cfg)
+    if missing:
+        raise SystemExit(f"--real --arch {arch}: not ported yet: "
+                         f"{'; '.join(missing)} (simulation takes every arch)")
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return cfg.reduced(), dev
+    import torch
+    weights = 2 * cfg.param_counts()["total"]
+    free, _total = torch.cuda.mem_get_info(dev)
+    if weights > free:
+        raise SystemExit(
+            f"--real --arch {arch}: its bf16 weights take {weights} bytes "
+            f"({weights / 1e9:.1f} GB), more than the {free} bytes free on "
+            f"{torch.cuda.get_device_name(dev)}; it is not served at full "
+            f"width on one card")
+    return cfg, dev
 
 
 def _build_model(cfg, dev):
@@ -106,14 +117,20 @@ def _save_trace(rec: TraceRecorder, path: str, arch: str = None):
           file=sys.stderr)
 
 
-def _save_timeline(trace: ScheduleTrace, path: str):
+def _save_timeline(trace: ScheduleTrace, path: str, telemetry=None):
     """Export the run's Perfetto timeline from its captured trace."""
     from repro_torch.obs.timeline import trace_to_chrome
-    doc = trace_to_chrome(trace)
+    doc = trace_to_chrome(trace, telemetry=telemetry)
     with open(path, "w") as f:
         f.write(dumps_report(doc))
     print(f"# perfetto timeline ({len(doc['traceEvents'])} events) -> "
           f"{path} (open in https://ui.perfetto.dev)", file=sys.stderr)
+
+
+def _save_metrics(telemetry: dict, path: str):
+    with open(path, "w") as f:
+        f.write(dumps_report(telemetry))
+    print(f"# telemetry snapshot -> {path}", file=sys.stderr)
 
 
 def _replay(args) -> None:
@@ -281,16 +298,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sanitize", action="store_true",
                     help="run the engine under the runtime sanitizer "
-                         "(repro_torch.analysis.sanitizer, not ported "
-                         "yet: raises): every scheduling event is "
-                         "checked against the engine's "
+                         "(repro_torch.analysis.sanitizer): every "
+                         "scheduling event is checked against the engine's "
                          "concurrency invariants and the report prints "
                          "the sanitizer counters; equivalent to "
                          "CACHEFLOW_SANITIZE=1")
     ap.add_argument("--telemetry", action="store_true",
                     help="collect the engine-wide metrics registry "
-                         "(repro_torch.obs.telemetry, not ported yet: "
-                         "raises): queue depth, admitted/decode batch "
+                         "(repro_torch.obs): queue depth, admitted/decode batch "
                          "sizes, benefit-gate outcomes, preempt/abort "
                          "counts, per-channel busy and measured GB/s, "
                          "storage-tier occupancy and per-request phase "
@@ -301,14 +316,14 @@ def main(argv=None):
                     help="write the full telemetry snapshot (metrics + "
                          "gauge time series + per-request phase "
                          "transitions) to PATH as strict JSON; implies "
-                         "--telemetry (not ported yet: raises)")
+                         "--telemetry")
     ap.add_argument("--timeline-out", metavar="PATH",
                     help="export the run's schedule as Chrome trace-event "
                          "JSON loadable in https://ui.perfetto.dev — one "
                          "track per engine resource, per-request lifecycle "
                          "flow arrows, aborted-op markers and counter "
-                         "tracks (queue depth, per-channel bandwidth); "
-                         "works with --replay too")
+                         "tracks (queue depth, tier bytes, per-channel "
+                         "bandwidth); works with --replay too")
     ap.add_argument("--real", action="store_true",
                     help="run the model for real: at full width in bf16 on "
                          "'cuda', reduced in f32 on 'cpu'")
@@ -329,7 +344,9 @@ def main(argv=None):
         raise SystemExit("--admission gang is the run-to-completion "
                          "baseline: no mid-flight admission, so preemption "
                          "policies do not apply (drop --preempt)")
-    _refuse_unported(args)
+
+    if args.metrics_out:
+        args.telemetry = True
 
     if args.replay:
         _replay(args)
@@ -359,6 +376,8 @@ def main(argv=None):
                                 admission=args.admission,
                                 prefetch=args.prefetch,
                                 kvstore=store, datapath=args.datapath,
+                                sanitize=args.sanitize or None,
+                                telemetry=args.telemetry or None,
                                 seed=args.seed, device=dev)
         decode_len = args.decode_len if args.decode_len >= 0 else 8
         # with a preemption policy armed, stagger arrivals and mark every
@@ -384,6 +403,8 @@ def main(argv=None):
                "io_busy": round(rep.io_busy, 3),
                "decode_busy": round(rep.decode_busy, 3),
                "overlap_decode_restore": round(rep.overlap_decode_restore, 3)}
+        if rep.sanitizer is not None:
+            out["sanitizer"] = rep.sanitizer
         if store is not None:
             out["storage"] = {
                 "chunks": len(store.chunks), "dedup_hits": store.dedup_hits,
@@ -416,7 +437,7 @@ def main(argv=None):
             out["datapath"] = {"mode": "legacy",
                                "load_dispatches":
                                    eng.executor.load_dispatches}
-        _emit_outputs(out, recorder, args)
+        _emit_outputs(out, rep, recorder, args)
         return
 
     cfg = get_config(args.arch)
@@ -439,7 +460,9 @@ def main(argv=None):
                            io_channels=args.io_channels,
                            preempt=args.preempt, evict=args.evict,
                            kv_tier=args.kv_tier, admission=args.admission,
-                           prefetch=args.prefetch)
+                           prefetch=args.prefetch,
+                           sanitize=args.sanitize or None,
+                           telemetry=args.telemetry or None)
     rep = eng.run(reqs, trace=recorder)
     if args.trace_out:
         _save_trace(recorder, args.trace_out, arch=args.arch)
@@ -454,14 +477,25 @@ def main(argv=None):
         "io_busy": round(rep.io_busy, 3),
         "decode_busy": round(rep.decode_busy, 3),
         "overlap_decode_restore": round(rep.overlap_decode_restore, 3)}
-    _emit_outputs(out, recorder, args)
+    if rep.sanitizer is not None:
+        out["sanitizer"] = rep.sanitizer
+    _emit_outputs(out, rep, recorder, args)
 
 
-def _emit_outputs(out: dict, recorder, args):
-    """Report emission shared by the sim and real paths: stdout gets the
-    report, the Perfetto timeline goes to its --timeline-out file."""
+def _emit_outputs(out: dict, rep, recorder, args):
+    """Shared report/metrics/timeline emission for the sim and real paths.
+    stdout gets the report (with the telemetry counters inlined when
+    collected); the full snapshot and the Perfetto timeline go to their
+    --*-out files."""
+    if rep.telemetry is not None:
+        # counters only on stdout — the gauge series and phase timelines
+        # can be large; --metrics-out carries the full snapshot
+        out["telemetry"] = {"counters": rep.telemetry["metrics"]["counters"]}
+    if args.metrics_out:
+        _save_metrics(rep.telemetry, args.metrics_out)
     if args.timeline_out:
-        _save_timeline(recorder.trace, args.timeline_out)
+        _save_timeline(recorder.trace, args.timeline_out,
+                       telemetry=rep.telemetry)
     print(dumps_report(out))
 
 

@@ -37,15 +37,28 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def unported_modules(cfg: ModelConfig) -> list:
+    """The modules the port still lacks to build ``cfg`` (empty when
+    :class:`Model` takes it)."""
+    missing = []
+    if cfg.mla is not None:
+        missing.append("repro_torch.models.mla (multi-head latent attention)")
+    if cfg.moe is not None:
+        missing.append("repro_torch.models.moe (mixture of experts)")
+    if cfg.input_mode != "tokens":
+        missing.append("the embedding-input frontend of repro_torch.models.model")
+    if cfg.position not in ("rope", "none"):
+        missing.append(f"the {cfg.position} positions of repro_torch.models.layers")
+    return missing
+
+
 class Model:
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.float32,
                  compute_dtype=torch.float32, device="cuda"):
-        if (cfg.mla is not None or cfg.moe is not None
-                or cfg.input_mode != "tokens"
-                or cfg.position not in ("rope", "none")):
-            raise NotImplementedError(
-                f"{cfg.name}: only dense, RG-LRU hybrid and RWKV-6 token-input "
-                f"models are ported so far")
+        missing = unported_modules(cfg)
+        if missing:
+            raise NotImplementedError(f"{cfg.name}: not ported yet: "
+                                      f"{'; '.join(missing)}")
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.compute_dtype = compute_dtype

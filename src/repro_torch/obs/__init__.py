@@ -1,11 +1,20 @@
 """Observability of the PyTorch port (counterpart of ``repro.obs``,
 DESIGN.md §15).
 
-Ported so far: ``timeline`` — the Perfetto/Chrome trace-event exporter
-(``python -m repro_torch.obs.timeline trace.json``).  The metrics registry
-and the ``Telemetry`` hook are not ported yet (``EngineCore`` raises when
-asked for telemetry).
+``registry`` — catalog-enforced counters/gauges/histograms
+(:data:`METRIC_CATALOG`, the reference's, is the single source of metric
+names; ``repro_torch.analysis.codelint`` checks every literal against it).
+``telemetry`` — the opt-in :class:`Telemetry` hook ``EngineCore`` drives
+(``telemetry=`` / ``CACHEFLOW_TELEMETRY=1`` / ``serve --telemetry``).
+``timeline`` — the Perfetto/Chrome trace-event exporter
+(``python -m repro_torch.obs.timeline trace.json``).
 """
+from repro_torch.obs.registry import (METRIC_CATALOG, Counter, Gauge,
+                                      Histogram, MetricsRegistry)
+from repro_torch.obs.telemetry import Telemetry, telemetry_env_enabled
 from repro_torch.obs.timeline import ops_to_chrome, trace_to_chrome
 
-__all__ = ["ops_to_chrome", "trace_to_chrome"]
+__all__ = [
+    "METRIC_CATALOG", "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "Telemetry", "telemetry_env_enabled", "ops_to_chrome", "trace_to_chrome",
+]

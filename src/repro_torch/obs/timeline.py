@@ -1,7 +1,8 @@
 """Perfetto timeline export: engine schedules as Chrome trace-event JSON.
 
-A copy of ``repro.obs.timeline``; telemetry is not ported yet, so
-``telemetry`` is ``None`` wherever the port calls it.
+A copy of ``repro.obs.timeline``; ``serve --telemetry --timeline-out``
+passes the run's ``Telemetry.snapshot()``, whose storage-tier gauges become
+counter tracks.
 
 Converts an engine ``ops_log`` (plus, when available, the captured
 ``ScheduleTrace`` events and a telemetry snapshot) into the Chrome

@@ -10,7 +10,10 @@ held on the CPU:
   with every split but one masked, and with no slot visible at all (the
   combine then gives the mean of V over every slot, as the reference's
   finite -1e30 mask does);
-* the wrapper refuses a non-contiguous q, k, v or kpos before it launches.
+* the same two passes at Dh 64 (qwen1.5-0.5b) and at the dense configs'
+  query groups G = 1, 3, 8 and 12 (the kernel pads G to 4, 10 or 16 warps);
+* the wrapper refuses a non-contiguous q, k, v or kpos, and a Dh other than
+  64, 128 or 256, before it launches.
 """
 import numpy as np
 import pytest
@@ -131,6 +134,50 @@ def test_two_pass_matches_plain_and_reference(case, backend):
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=ATOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
     assert float(got.abs().max()) < 10.0     # no V = 100 slot was attended
+
+
+@pytest.mark.parametrize("g", [1, 3, 8, 12])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_two_pass_dh64_and_dense_groups(case, g):
+    (window, kp_fn, q_pos), s = CASES[case], S
+    rng = np.random.default_rng(7)
+    b, hkv, dh = 1, 2, 64
+    q = rng.standard_normal((b, hkv * g, dh)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, dh)).astype(np.float32)
+    kpos = kp_fn(s).astype(np.int32)
+    seen = (kpos >= 0) & (kpos <= q_pos) & ((window <= 0) | (kpos > q_pos - window))
+    if seen.any():
+        v[:, ~seen] = 100.0
+    split_slots, n_split = _split_plan(b, hkv, s, sm_count=32)
+    assert n_split > 1
+    tq, tk, tv, tkp = (torch.from_numpy(a) for a in (q, k, v, kpos))
+    got, _ = two_pass(tq, tk, tv, tkp, q_pos, scale=dh ** -0.5, window=window,
+                      split_slots=split_slots)
+    plain = flash_decode_plain(tq, tk, tv, tkp, q_pos, scale=dh ** -0.5,
+                               window=window)
+    want = flash_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jnp.asarray(kpos), q_pos, scale=dh ** -0.5,
+                                  window=window, backend="ref", bk=24)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+    assert float(got.abs().max()) < 10.0
+
+
+@pytest.mark.parametrize("dh,accepted", [(64, True), (96, False), (128, True),
+                                         (192, False), (256, True)])
+def test_wrapper_takes_dh_64_128_256(dh, accepted):
+    """On the meta device a taken Dh passes the shape checks and is refused
+    only for its device; any other Dh is refused by name."""
+    dev, bf = "meta", torch.bfloat16
+    t = [torch.empty(1, 4, dh, device=dev, dtype=bf),
+         torch.empty(1, 64, 2, dh, device=dev, dtype=bf),
+         torch.empty(1, 64, 2, dh, device=dev, dtype=bf),
+         torch.empty(64, device=dev, dtype=torch.int32)]
+    before = flash_decode.launches
+    with pytest.raises(ValueError, match="CUDA device" if accepted else "does not take q"):
+        flash_decode(*t, 63, scale=0.1)
+    assert flash_decode.launches == before
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v", "kpos"])

@@ -13,8 +13,11 @@ CPU:
   ``attention_chunk``) and the JAX kernel ``flash_prefill_attention``
   (``ref`` and interpret mode) within ATOL = 1e-5 (f32 sums in another
   order);
+* the same decomposition at Dh 64 (qwen1.5-0.5b) and at the dense
+  configs' query groups G = 1, 3, 8 and 12, where 64 is no multiple of G
+  (3, 12) and a query row's heads straddle two M tiles;
 * the wrapper refuses strided, mistyped and unsupported inputs before it
-  launches.
+  launches, and takes Dh 64, 128 and 256.
 """
 import math
 
@@ -37,7 +40,7 @@ SM_COUNT = 132
 @pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("s", [64, 592, 2048, 4176])
 @pytest.mark.parametrize("hkv", [1, 8])
-@pytest.mark.parametrize("g", [1, 4, 10])
+@pytest.mark.parametrize("g", [1, 3, 4, 8, 10, 12])
 @pytest.mark.parametrize("sq", [64, 200, 256])
 def test_plan_tiles_the_cache_and_fills_the_card(sq, g, hkv, s, b):
     m_tile, n, per = _plan(b, hkv, sq, g, s, SM_COUNT)
@@ -258,6 +261,34 @@ def test_mirror_matches_reference_kernel(case, g, backend):
     np.testing.assert_allclose(got.numpy()[:, rows], want[:, rows], rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("g", [1, 3, 8, 12])
+@pytest.mark.parametrize("case", ["ragged", "whole_splits_skipped",
+                                  "rows_before_every_key", "ring_stale_slots"])
+def test_mirror_dh64_and_dense_groups(case, g):
+    """Dh 64 and the G of the five dense configs: the mirror against the
+    plain version and the model path; where 64 is no multiple of G, some
+    query row's heads lie in two M tiles and every pair of it is still
+    right."""
+    q, k, v, kpos, q_off, window, _, seen = _inputs(case, g, hkv=2, dh=64)
+    scale = 64 ** -0.5
+    tq, tk, tv, tkp = (torch.from_numpy(a) for a in (q, k, v, kpos))
+    got, stats = mirror(tq, tk, tv, tkp, q_off, scale=scale, window=window,
+                        sm_count=32)
+    _check_stats(case, stats, seen)
+    sq = q.shape[1]
+    straddling = [t * M_TILE // g for t in range(1, -(-sq * g // M_TILE))
+                  if t * M_TILE % g]
+    assert bool(straddling) == (M_TILE % g != 0 and sq * g > M_TILE)
+    plain = flash_prefill_plain(tq, tk, tv, tkp, q_off, scale=scale, window=window)
+    model = _gqa_scores_naive(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(seen), scale)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(model), rtol=0, atol=ATOL)
+    for row in straddling:
+        np.testing.assert_allclose(got.numpy()[:, row], plain.numpy()[:, row],
+                                   rtol=0, atol=ATOL)
+
+
 def _meta_inputs(dh=128):
     dev, bf = "meta", torch.bfloat16
     return {"q": torch.empty(1, 16, 8, dh, device=dev, dtype=bf),
@@ -281,8 +312,10 @@ REFUSALS = {
     "q_f32": (lambda t: {**t, "q": t["q"].float()}, "bf16"),
     "v_f16": (lambda t: {**t, "v": t["v"].half()}, "bf16"),
     "kpos_int64": (lambda t: {**t, "kpos": t["kpos"].long()}, "int32"),
-    "dh_64": (lambda t: _meta_inputs(64), "Dh 128 or 256"),
-    "dh_192": (lambda t: _meta_inputs(192), "Dh 128 or 256"),
+    # Dh 64 passes the shape checks: only the meta device is refused
+    "dh_64": (lambda t: _meta_inputs(64), "CUDA device"),
+    "dh_96": (lambda t: _meta_inputs(96), "Dh 64, 128 or 256"),
+    "dh_192": (lambda t: _meta_inputs(192), "Dh 64, 128 or 256"),
 }
 
 

@@ -9,13 +9,13 @@
   plain version for a tensor on another device;
 * importing the port builds nothing.
 """
-import ast
 import pathlib
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.analysis.codelint import check_no_reference_import  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.datapath import RestoreDatapath  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -31,29 +31,13 @@ from repro_torch.serving import ChunkStore, RealServingEngine  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "repro"}
-
-
-def _imported_roots(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for alias in node.names:
-                yield alias.name.split(".")[0]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            yield node.module.split(".")[0]
-        elif (isinstance(node, ast.Call) and node.args
-              and getattr(node.func, "attr", "") == "import_module"):
-            arg = node.args[0]                 # "pkg.mod" or f"pkg.{name}"
-            head = arg.values[0] if isinstance(arg, ast.JoinedStr) else arg
-            if isinstance(head, ast.Constant):
-                yield str(head.value).split(".")[0]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_reference(path):
-    bad = FORBIDDEN.intersection(_imported_roots(path))
-    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+    """The codelint rule no-reference-import, file by file."""
+    bad = check_no_reference_import([path])
+    assert not bad, [str(f) for f in bad]
 
 
 def _no_cuda():

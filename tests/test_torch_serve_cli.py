@@ -5,10 +5,16 @@ Sim mode and analytic replay are the same framework-free arithmetic in both
 packages, so on the same argv (``--hardware`` given, since the defaults
 differ) the port must print the same report, byte for byte.  Real mode runs
 the reduced model in f32 on the CPU (``--device cpu``): its report has the
-reference's keys, its trace replays on the device and analytically.  Flags
-whose module is not ported yet exit with an error naming the module.
+reference's keys, its trace replays on the device and analytically.  The
+opt-ins (``--sanitize``, ``--telemetry``, ``--metrics-out`` and their
+environment switches) print the reference's report in sim mode, and run
+with no violation in real mode; every arch of the registry simulates as in
+the reference; ``--real`` on an arch whose family is not ported (MLA, MoE,
+embedding input) exits naming the module, and on a card a config whose bf16
+weights exceed its free memory exits naming the bytes.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import sys
@@ -216,19 +222,122 @@ def test_replay_real_refuses_foreign_geometry(cli, tmp_path):
                       "--arch", "rwkv6-7b"])
 
 
-@pytest.mark.parametrize("argv,env,module", [
-    (["--sanitize"], {}, "repro_torch.analysis.sanitizer"),
-    ([], {"CACHEFLOW_SANITIZE": "1"}, "repro_torch.analysis.sanitizer"),
-    (["--telemetry"], {}, "repro_torch.obs.telemetry"),
-    (["--metrics-out", "m.json"], {}, "repro_torch.obs.telemetry"),
-    ([], {"CACHEFLOW_TELEMETRY": "1"}, "repro_torch.obs.telemetry"),
-    (["--real", "--device", "cpu", "--sanitize"], {}, "repro_torch.analysis.sanitizer"),
-])
-def test_unported_flags_raise_naming_their_module(cli, monkeypatch, argv, env, module):
+OPT_INS = {
+    "sanitize": (["--sanitize"], {}),
+    "env_sanitize": ([], {"CACHEFLOW_SANITIZE": "1"}),
+    "telemetry": (["--telemetry"], {}),
+    "metrics_out": (["--metrics-out", "{dir}/m.json"], {}),
+    "env_telemetry": ([], {"CACHEFLOW_TELEMETRY": "1"}),
+    "sanitize_telemetry_metrics": (["--sanitize", "--telemetry", "--metrics-out",
+                                    "{dir}/m.json"], {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPT_INS))
+def test_opt_ins_sim_report_same_as_reference(cli, monkeypatch, tmp_path, case):
+    """The opt-ins run (they used to exit): the port's sim report, with its
+    sanitizer and telemetry blocks, and its --metrics-out snapshot equal the
+    reference's byte for byte."""
+    argv, env = OPT_INS[case]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit, match=module.replace(".", r"\.")):
-        cli("torch", ["--requests", "4"] + argv)
+    outs = {}
+    for side in ("jax", "torch"):
+        d = tmp_path / side
+        d.mkdir()
+        out = cli(side, ["--requests", "4", "--hardware", "h100"]
+                  + [a.replace("{dir}", str(d)) for a in argv])
+        snap = (d / "m.json").read_text() if (d / "m.json").exists() else None
+        outs[side] = (out, snap)
+    assert outs["torch"] == outs["jax"]
+    rep = json.loads(outs["torch"][0])
+    assert ("sanitizer" in rep) == ("sanitize" in case)
+    assert ("telemetry" in rep) == (case not in ("sanitize", "env_sanitize"))
+    if "sanitize" in case:
+        assert rep["sanitizer"]["finishes"] == rep["lifecycle"]["completed"] == 4
+
+
+def _counter_fields():
+    from repro.core.profiler import SanitizerCounters
+    return {f: None for f in SanitizerCounters().as_dict()}
+
+
+@pytest.mark.parametrize("case", ["sanitize", "env_sanitize", "sanitize_telemetry_metrics",
+                                  "env_telemetry"])
+def test_opt_ins_real_cpu(cli, monkeypatch, tmp_path, reference_real, case):
+    """``--real --device cpu`` under the opt-ins: the reference's report
+    keys plus the sanitizer's counters (the reference's fields) and the
+    telemetry counters; the sanitizer raised no violation (it raises)."""
+    argv, env = OPT_INS[case]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rep = json.loads(cli("torch", ["--real", "--device", "cpu", "--requests", "3",
+                                   "--decode-len", "2", "--kv-quant", "int8"]
+                         + [a.replace("{dir}", str(tmp_path)) for a in argv]))
+    want = _keys(reference_real[0])
+    if "sanitize" in case:
+        want["sanitizer"] = _counter_fields()
+    keys = _keys(rep)
+    if "telemetry" in rep:
+        assert rep["telemetry"]["counters"]["engine.admissions_total"] == 3
+        keys.pop("telemetry")
+    assert keys == want
+    assert rep["lifecycle"]["completed"] == 3
+    if "sanitize" in case:
+        assert rep["sanitizer"]["finishes"] == 3 and rep["sanitizer"]["audits"] > 0
+
+
+ALL_ARCHS = ["phi4-mini-3.8b", "mistral-large-123b", "qwen1.5-0.5b", "qwen1.5-110b",
+             "pixtral-12b", "deepseek-v2-236b", "deepseek-moe-16b", "recurrentgemma-2b",
+             "rwkv6-7b", "musicgen-large", "qwen3-8b", "llama3.1-8b", "qwen3-30b-a3b"]
+
+
+def test_registry_equals_reference():
+    from repro.configs import list_archs as j_list_archs
+    from repro_torch.configs import list_archs
+    assert list_archs() == j_list_archs() == ALL_ARCHS
+    for arch in ALL_ARCHS:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get_config(arch))
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_sim_report_every_arch_same_as_reference(cli, arch):
+    argv = ["--arch", arch, "--requests", "8", "--hardware", "h100"]
+    out = cli("torch", argv)
+    assert out == cli("jax", argv)
+    assert json.loads(out)["lifecycle"]["completed"] == 8
+
+
+@pytest.mark.parametrize("arch,module", [
+    ("deepseek-v2-236b", "repro_torch.models.mla"),
+    ("deepseek-moe-16b", "repro_torch.models.moe"),
+    ("qwen3-30b-a3b", "repro_torch.models.moe"),
+    ("pixtral-12b", "embedding-input frontend"),
+    ("musicgen-large", "embedding-input frontend"),
+])
+def test_real_unported_family_exits_naming_the_module(cli, arch, module):
+    """The CLI and ``Model`` refuse by one rule and name the same module."""
+    for device in ("cpu", "cuda"):
+        with pytest.raises(SystemExit, match=module.replace(".", r"\.")):
+            cli("torch", ["--real", "--device", device, "--arch", arch])
+    from repro_torch.models import Model
+    with pytest.raises(NotImplementedError, match=module.replace(".", r"\.")):
+        Model(get_config(arch).reduced(), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-110b", "mistral-large-123b"])
+def test_real_on_a_card_refuses_weights_past_its_free_memory(cli, monkeypatch, arch):
+    """Before anything is allocated: the bf16 weights (2 bytes a parameter)
+    against what the card has free, here an 80 GB card's."""
+    import repro_torch.models.model as model_mod
+    monkeypatch.setattr(model_mod, "resolve_device", lambda d: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (79_000_000_000,
+                                                                    80_000_000_000))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: "an 80 GB card")
+    weights = 2 * get_config(arch).param_counts()["total"]
+    assert 200e9 < weights < 260e9
+    with pytest.raises(SystemExit, match=f"take {weights} bytes"):
+        cli("torch", ["--real", "--arch", arch])
 
 
 def test_gang_with_preemption_refused_alike(cli):
