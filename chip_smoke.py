@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py                   # build + kernel phase + serve, dense, CLI phases
+    python3 chip_smoke.py                   # build + kernel phase + serve, dense, family, CLI phases
     python3 chip_smoke.py --kernels-only    # build + kernel phase only
     python3 chip_smoke.py --profile         # also trace one serve of each model
     python3 chip_smoke.py --decode-sweep    # kernel phase + flash_decode over S, B
@@ -42,14 +42,22 @@ launched and its greedy tokens held by a second unquantized serve; the
 kernel phase checks both attention kernels at those configs' new shapes
 (Dh 64 with G 1, G 3, G 12) and holds every ``flash_prefill`` entry to two
 more checks (``rounding_ratio`` at most 1, and its error against f32 no
-larger than the plain version's).  Last, ``python -m repro_torch.launch.serve`` runs in
+larger than the plain version's).  The family phase serves the MoE, MLA and
+embedding-input configs the same way (qwen3-30b-a3b and deepseek-v2-236b,
+cut to 4 of its 60 layers, from int8 stores; deepseek-moe-16b, pixtral-12b
+and musicgen-large with none), every request verified on its cache's fields
+(k/v, or the MLA latent ckv), its path's kernels launched, its greedy tokens
+(the embedding models: first-token logits) held by another serve; the
+kernel phase checks both attention kernels at their shapes (G 8 and G 1 at
+Dh 128, 32 heads at Dh 64) and the three store kernels at their rows of
+512 and 576 channels.  Last, ``python -m repro_torch.launch.serve`` runs in
 process as a user runs it: a simulation, full-width int8 qwen3-8b for real
 with ``--trace-out``, ``--replay`` of that trace analytically (with
 ``--timeline-out``) and on the card, full-width recurrentgemma-2b and
 rwkv6-7b for real, the int8 qwen3-8b call again under ``--sanitize
 --telemetry --metrics-out --timeline-out``, llama3.1-8b and the MoE
-qwen3-30b-a3b simulated, and llama3.1-8b for real, each ``--real`` call
-required to launch its path's kernels; one ``{"cli": [...]}`` line gives
+qwen3-30b-a3b simulated, and qwen3-30b-a3b and llama3.1-8b for real, each
+``--real`` call required to launch its path's kernels; one ``{"cli": [...]}`` line gives
 each call's wall seconds, TTFT, TPOT and launches.  Then the sanitizer's
 copy-on-write check runs on a CUDA block pool.  The second-to-last line of
 stdout is a ``{"kernels": [...]}`` summary; the last line is the ok/device
@@ -155,31 +163,38 @@ def time_ms(fn, *, iters: int = 21, flush=None):
     return statistics.median(times)
 
 
-def kernels_us(fn, flush=None, iters: int = 5, match="flash_decode") -> dict:
+def kernels_us(fn, flush=None, iters: int = 5, match="flash_decode"):
     """Device time per call of each kernel ``fn`` launches whose name holds
     ``match`` (one substring or a tuple of them; torch.profiler), after
     ``flush`` as in ``time_ms`` or, without one, with the inputs warm in L2
-    from the call before."""
+    from the call before.  None (printed null, and listed on the
+    ``kernels_us_missing`` line) when every try's trace came back without
+    them, so a missing reading never reads as an empty one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if any(m in e.key for m in ((match,) if isinstance(match, str) else match)) and us:
-            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
-            out[name.removeprefix("void ").split("::")[-1].strip()] = us / iters
-    return out
+    # a trace now and then comes back without the device's events: up to
+    # three tries
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if any(m in e.key for m in ((match,) if isinstance(match, str) else match)) and us:
+                name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+                out[name.removeprefix("void ").split("::")[-1].strip()] = us / iters
+        if out:
+            return out
+    return None
 
 
 def nbytes(*ts) -> int:
@@ -467,6 +482,7 @@ def kernel_phase(dev, card: str) -> dict:
     hybrid_kernel_cases(dev, g, flush, res)
     rwkv_kernel_cases(dev, g, flush, res)
     dense_kernel_cases(dev, g, flush, res)
+    family_store_cases(dev, g, flush, res)
 
     for name, r in res.items():
         line = {("max_err" if k == "max_abs_err" else "kernel_ms" if k == "ms" else k): v
@@ -782,6 +798,154 @@ def dequant_cases(dev, g, flush, res: dict, x, qk, sk):
         raise AssertionError(f"kv_dequantize: unexpected units {units}")
 
 
+# the three store kernels at the family phase's widths: (entry suffix, arch,
+# attention slots of the served model, slots of one stage's load op, fields,
+# channels of a field's row, the quantizer's chunk of one field, and its
+# other chunks to check).  qwen3-30b-a3b's k/v rows are 4 x 128 = 512
+# channels over 48 slots; deepseek-v2-236b's one latent row is 512 + 64 = 576
+# channels over the 4 layers it is served with (60 at full depth).
+FAMILY_STORE = (
+    ("q30", "qwen3-30b-a3b", 48, 24, 2, 512, (48, 1, 16, 4, 128),
+     (("tail", (48, 1, 10, 4, 128)),)),
+    ("mla", "deepseek-v2-236b", 4, 2, 1, 576, (4, 1, 16, 576),
+     (("60 layers", (60, 1, 16, 576)), ("tail", (4, 1, 10, 576)))),
+)
+
+
+def family_store_cases(dev, g, flush, res: dict):
+    """kv_quantize, kv_dequantize (one chunk and a transfer run) and
+    kv_restore against their plain versions by torch.equal at the shapes the
+    family phase's int8 serves give them (``FAMILY_STORE``), each timed with
+    its plan printed: the quantizer's 16-token chunk of one field (and a
+    10-token tail; deepseek-v2-236b also at full depth); its decode; a run
+    of 8 chunks of every field; the serve's load op (int8, one stage's slots
+    x 256 tokens from t0 1024 into bf16 caches of 4176 slots) and a 40-row
+    ragged last chunk."""
+    import torch
+    from repro_torch.kernels.kv_quant import (kv_dequantize, kv_dequantize_plain,
+                                              kv_dequantize_plan, kv_quantize,
+                                              kv_quantize_plain)
+    from repro_torch.kernels.kv_restore import (kv_restore_plain, kv_restore_plan,
+                                                kv_restore_scatter)
+
+    bf = torch.bfloat16
+    cs, n, t0, s = 16, 8, 1024, 4176
+    for tag, arch, a, ns, nf, c, chunk, extra in FAMILY_STORE:
+        def randn(*shape):
+            return (torch.randn(*shape, generator=g, device=dev) * 3).to(bf)
+
+        def qcase(name, x):
+            q, s_ = kv_quantize(x)
+            qp, sp = kv_quantize_plain(x)
+            torch.cuda.synchronize()
+            return dict(case=name, shape=list(x.shape), bit_exact=torch.equal(q, qp)
+                        and torch.equal(s_, sp), max_abs_err=float((q.float() - qp.float())
+                                                                   .abs().max()),
+                        **quant_plan_of(x)[1])
+        x = randn(*chunk)
+        cases = [qcase("serve chunk", x)] + [qcase(nm, randn(*sh)) for nm, sh in extra]
+        qk, sk = kv_quantize(x)
+        torch.cuda.synchronize()
+
+        def call():
+            return kv_quantize(x)
+        bms, by = bound(nbytes(x, qk, sk), 3 * x.numel())
+        res[f"kv_quantize_{tag}"] = dict(
+            max_abs_err=max(cc["max_abs_err"] for cc in cases), tol=0.0, arch=arch,
+            bit_exact=all(cc["bit_exact"] for cc in cases), cases=cases,
+            ms=time_ms(call, flush=flush),
+            kernels_us=kernels_us(call, flush, match="kv_quantize"),
+            kernels_us_warm=kernels_us(call, match="kv_quantize"),
+            plain_ms=time_ms(lambda: kv_quantize_plain(x), flush=flush),
+            library_ms=None, bound_ms=bms, bound_by=by, **quant_plan_of(x)[1],
+            shape=f"x {tuple(chunk)} bf16 -> int8 + f32 ({chunk[-1]},)")
+
+        got, want = kv_dequantize(qk, sk, bf), kv_dequantize_plain(qk, sk, bf)
+        torch.cuda.synchronize()
+
+        def call():
+            return kv_dequantize(qk, sk, bf)
+        bms, by = bound(nbytes(qk, sk, got), x.numel())
+        res[f"kv_dequantize_{tag}"] = dict(
+            max_abs_err=float((got.float() - want.float()).abs().max()), tol=0.0,
+            arch=arch, bit_exact=torch.equal(got, want), ms=time_ms(call, flush=flush),
+            kernels_us=kernels_us(call, flush, match="kv_dequantize"),
+            kernels_us_warm=kernels_us(call, match="kv_dequantize"),
+            plain_ms=time_ms(lambda: kv_dequantize_plain(qk, sk, bf), flush=flush),
+            library_ms=None, bound_ms=bms, bound_by=by,
+            **rows_plan_fields(kv_dequantize_plan(qk, sk, bf)),
+            shape=f"q {tuple(chunk)} int8, scales ({chunk[-1]},) -> bf16")
+
+        q = [torch.randint(-127, 128, (a, n * cs, c), generator=g, device=dev,
+                           dtype=torch.int8) for _ in range(nf)]
+        scl = [torch.rand(n, c, generator=g, device=dev) * 0.05 for _ in range(nf)]
+        chunks = kv_dequantize(q, scl, bf, chunk_size=cs)
+        exact, err = True, 0.0
+        for field, xq, sc in zip(chunks, q, scl):
+            for ch, o in enumerate(field):
+                w = kv_dequantize_plain(xq[:, ch * cs:(ch + 1) * cs].contiguous(), sc[ch], bf)
+                exact &= torch.equal(o, w)
+                err = max(err, float((o.float() - w.float()).abs().max()))
+
+        def call():
+            return kv_dequantize(q, scl, bf, chunk_size=cs)
+        bms, by = bound(nbytes(*q, *scl) + 2 * nf * q[0].numel(), nf * q[0].numel())
+        res[f"kv_dequantize_run_{tag}"] = dict(
+            max_abs_err=err, tol=0.0, arch=arch, bit_exact=exact,
+            ms=time_ms(call, flush=flush),
+            kernels_us=kernels_us(call, flush, match="kv_dequantize"),
+            kernels_us_warm=kernels_us(call, match="kv_dequantize"),
+            plain_ms=time_ms(lambda: kv_dequantize_plain(q, scl, bf, chunk_size=cs),
+                             flush=flush),
+            library_ms=None, bound_ms=bms, bound_by=by,
+            **rows_plan_fields(kv_dequantize_plan(q, scl, bf, chunk_size=cs)),
+            shape=f"{nf} field(s) of q ({a},{n * cs},{c}) int8, scales ({n},{c}) -> bf16")
+        del q, scl, chunks
+
+        kw = dict(t0=t0, slot_lo=0, n_slots=ns, chunk_size=cs)
+        caches = [torch.randn(a, s, c, generator=g, device=dev).to(bf) for _ in range(nf)]
+        rcases = []
+        for name, t in (("serve op", 256), ("ragged last chunk", 40)):
+            staged = [torch.randint(-127, 128, (a, t, c), generator=g, device=dev,
+                                    dtype=torch.int8) for _ in range(nf)]
+            sc = [torch.rand(-(-t // cs), c, generator=g, device=dev) * 0.05
+                  for _ in range(nf)]
+            got = kv_restore_scatter([x_.clone() for x_ in caches], staged, sc, **kw)
+            want = kv_restore_plain([x_.clone() for x_ in caches], staged, sc, **kw)
+            torch.cuda.synchronize()
+            rcases.append(dict(case=name, staged=list(staged[0].shape), t0=t0,
+                               bit_exact=all(torch.equal(u, w) for u, w in zip(got, want)),
+                               max_abs_err=max(float((u.float() - w.float()).abs().max())
+                                               for u, w in zip(got, want)),
+                               **rows_plan_fields(kv_restore_plan(caches, staged, sc, **kw))))
+            if name == "serve op":
+                timed_in = (staged, sc)
+            del got, want
+        staged, sc = timed_in
+
+        def call():
+            return kv_restore_scatter(caches, staged, sc, **kw)
+        bms, by = bound(nf * ns * 256 * c * (1 + 2) + nbytes(*sc), nf * ns * 256 * c)
+        res[f"kv_restore_{tag}"] = dict(
+            max_abs_err=max(r["max_abs_err"] for r in rcases), tol=0.0, arch=arch,
+            bit_exact=all(r["bit_exact"] for r in rcases), cases=rcases,
+            ms=time_ms(call, flush=flush),
+            kernels_us=kernels_us(call, flush, match="kv_restore"),
+            kernels_us_warm=kernels_us(call, match="kv_restore"),
+            plain_ms=time_ms(lambda: kv_restore_plain(caches, staged, sc, **kw),
+                             flush=flush),
+            library_ms=None, bound_ms=bms, bound_by=by,
+            **rows_plan_fields(kv_restore_plan(caches, staged, sc, **kw)),
+            shape=f"int8 ({a},256,{c}) x{nf} field(s) -> slots 0..{ns} of bf16 "
+                  f"({a},{s},{c}) at t0 {t0}")
+        units = {r["unit"] for r in rcases} | {res[f"kv_dequantize{k}_{tag}"]["unit"]
+                                               for k in ("", "_run")}
+        if units != {16} or {cc["vec"] for cc in cases} != {8}:
+            raise AssertionError(f"{tag}: expected 16-byte units, got {units}, "
+                                 f"{[cc['vec'] for cc in cases]}")
+        del caches, staged, sc, x, qk, sk
+
+
 def quant_sweep(dev):
     """kv_quantize at the serve's chunk (36 layers x 16 tokens) and at its
     longest tail (10 tokens) over cluster sizes 4, 8 and 16 on both
@@ -977,12 +1141,18 @@ def hybrid_kernel_cases(dev, g, flush, res: dict):
 # suffix, arch, Hq, Hkv, Dh)
 DENSE_SHAPES = (("dh64", "qwen1.5-0.5b", 16, 16, 64),
                 ("g3", "phi4-mini-3.8b", 24, 8, 128),
-                ("g12", "mistral-large-123b", 96, 8, 128))
+                ("g12", "mistral-large-123b", 96, 8, 128),
+                # the family phase's: G 8, MHA at Dh 128, MHA of 32 heads at Dh 64
+                # (pixtral-12b's 32 on 8 at Dh 128 is qwen3-8b's shape)
+                ("g8", "qwen3-30b-a3b", 32, 4, 128),
+                ("mha128", "deepseek-moe-16b", 16, 16, 128),
+                ("mha64", "musicgen-large", 32, 32, 64))
 
 
 def dense_kernel_cases(dev, g, flush, res: dict):
-    """Both attention kernels at the dense configs' new shapes (Dh 64 with G
-    1, G 3 and G 12 at Dh 128), at the smoke's own positions: a 256-row
+    """Both attention kernels at the dense and family configs' new shapes
+    (``DENSE_SHAPES``: Dh 64 with 16 and 32 heads at G 1, G 1, 3, 8 and 12
+    at Dh 128), at the smoke's own positions: a 256-row
     chunk at 3840 over 4096 keys and the serve's longest suffix, 64 rows at
     4096 over 4176 slots, 4160-4175 empty (both timed), and decode at 4095
     over 4096 slots (timed) and at 3999 over 4096 slots, 4000-4095 empty.
@@ -1818,7 +1988,9 @@ def cli_phase(dev, card: str) -> dict:
     datapath's transfer-run launches, which are the call's ``kv_restore``
     launches less its resident-run copies, and the timeline's tier-bytes
     counter tracks); llama3.1-8b and the MoE qwen3-30b-a3b in simulation;
-    llama3.1-8b for real from an int8 store.  Prints one ``{"cli": ...}``
+    qwen3-30b-a3b (full width and depth, 61 GB of bf16 weights) and
+    llama3.1-8b for real from an int8 store (the five qwen3 kernels must
+    launch).  Prints one ``{"cli": ...}``
     line: each call's wall seconds, its report's TTFT p50 and mean TPOT,
     and its launches by kernel."""
     import io
@@ -1847,6 +2019,8 @@ def cli_phase(dev, card: str) -> dict:
                                  observed_timeline], QWEN3_KERNELS),
         ("sim_llama", ["--arch", "llama3.1-8b", "--requests", "64"], ()),
         ("sim_moe", ["--arch", "qwen3-30b-a3b", "--requests", "64"], ()),
+        ("real_moe", ["--real", "--arch", "qwen3-30b-a3b", "--requests", "4",
+                      "--kv-quant", "int8"], QWEN3_KERNELS),
         ("real_llama", ["--real", "--arch", "llama3.1-8b", "--requests", "4",
                         "--kv-quant", "int8"], QWEN3_KERNELS),
     ]
@@ -2163,6 +2337,12 @@ DENSE_KERNELS = ("flash_prefill", "flash_decode")
 STORE_KERNELS = ("kv_restore", "kv_quantize", "kv_dequantize")
 
 
+def verified_fields(cfg) -> set:
+    """The cache fields a verified request of ``cfg`` must report: the MLA
+    latent or the K/V of its attention layers, and their positions."""
+    return {"ckv", "kpos"} if cfg.mla is not None else {"k", "v", "kpos"}
+
+
 def dense_phase(dev, card: str) -> dict:
     """One real serve of each dense config the port added: bf16, random
     weights from seed 0, verify on, the smoke's serve shape (4 requests at
@@ -2214,7 +2394,7 @@ def dense_phase(dev, card: str) -> dict:
         bad = [r.request_id for r in reqs
                if len(ex.outputs(r.request_id)["tokens"]) != r.decode_len
                or not bool(torch.isfinite(ex.outputs(r.request_id)["first_logits"]).all())
-               or not {"k", "v", "kpos"} <= set(errs[r.request_id])]
+               or not verified_fields(cfg) <= set(errs[r.request_id])]
         del eng
         if int8:
             tokens_a = serve("none")[3]
@@ -2251,6 +2431,189 @@ def dense_phase(dev, card: str) -> dict:
         if diff is not None:
             raise AssertionError(f"{arch}: greedy tokens moved between two unquantized "
                                  f"serves at {diff}")
+    return results
+
+
+# (arch, layers run or None for all, int8 chunk store, prefixes) of the
+# family phase: deepseek-v2-236b's 471 GB of bf16 weights at full depth
+# cannot fit one card, so it runs at full width cut to 4 of its 60 layers
+# (the dense first layer and 3 MoE layers)
+FAMILY_SERVES = (
+    ("qwen3-30b-a3b", None, True, (512, 1536, 2560, 4096)),
+    ("deepseek-moe-16b", None, False, (512, 1536, 2560, 4096)),
+    ("deepseek-v2-236b", 4, True, (512, 1024, 1536, 2048)),
+    ("pixtral-12b", None, False, (512, 1536, 2560, 4096)),
+    ("musicgen-large", None, False, (512, 1536, 2560, 4096)),
+)
+# record_function ranges of a traced MoE serve: the whole MoE layer's routed
+# part (router, dispatch, experts, combine) and the expert products in it
+MOE_RANGES = ("moe_group", "moe_experts")
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """``moe.moe_group`` and ``moe._expert_ffn`` run inside record_function
+    ranges named as MOE_RANGES."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+
+    group, experts = moe.moe_group, moe._expert_ffn
+
+    def moe_group(*args, **kw):
+        with record_function(MOE_RANGES[0]):
+            return group(*args, **kw)
+
+    def expert_ffn(*args, **kw):
+        with record_function(MOE_RANGES[1]):
+            return experts(*args, **kw)
+    moe.moe_group, moe._expert_ffn = moe_group, expert_ffn
+    try:
+        yield
+    finally:
+        moe.moe_group, moe._expert_ffn = group, experts
+
+
+def moe_row_invariance(model, params, dev, m: int = 512, c: int = 256) -> dict:
+    """As ``row_invariance`` for RWKV: on the same random bf16 input, max
+    |op(a)[:c] - op(a[:c])| for the first MoE layer's router product (f32),
+    its expert products over an (E, m, D) buffer, and the whole layer
+    (``apply_moe``).  Nonzero means another row count took another
+    summation order; ``remember``'s chunks are what recompute repeats."""
+    import torch
+    from repro_torch.models import moe
+
+    cfg = model.cfg
+    p = next(layer["moe"] for layer in params["layers"] if "moe" in layer)
+    g = torch.Generator(device=dev).manual_seed(2)
+    a = torch.randn(1, m, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    buf = torch.randn(cfg.moe.num_experts, m, cfg.d_model, generator=g,
+                      device=dev).to(torch.bfloat16)
+    # (input, its row axis, op)
+    ops = {"router f32": (a[0], 0, lambda x: x.float() @ p["router"]),
+           "expert products (E, M, D)": (buf, 1, lambda x: moe._expert_ffn(
+               p, x, cfg.activation)),
+           "apply_moe": (a, 1, lambda x: moe.apply_moe(p, x, cfg)[0])}
+    out = {}
+    for name, (x, axis, fn) in ops.items():
+        full = fn(x).narrow(axis, 0, c)
+        out[name] = float((full.float() - fn(x.narrow(axis, 0, c)).float()).abs().max())
+    return out
+
+
+def family_phase(dev, card: str, profile: bool = False) -> dict:
+    """One real serve of each MoE, MLA and embedding-input config
+    (``FAMILY_SERVES``): bf16, random weights from seed 0, verify on, the
+    smoke's serve shape (4 requests at t = 0, 64 new and 16 output tokens,
+    chunk 256, 2 stages, l_delta 1024, max_batch 2); qwen3-30b-a3b and
+    deepseek-v2-236b from an int8 chunk store (the three store kernels run
+    on k/v rows of 512 channels and on the 576-channel latent row), the
+    others with no store.  Each must complete 4 of 4 with every request
+    verified on its cache's fields, launch its path's kernels (the MLA
+    serve's absorbed attention is plain products, as in the reference: only
+    the store kernels), and hold its greedy tokens across two unquantized
+    serves, and their first-token logits by torch.equal.
+    The MoE configs print their ``moe_row_invariance``.  With ``profile``,
+    one more qwen3-30b-a3b serve is traced: device time by kernel, and in
+    the MoE ranges.  One ``{"family_serve": ...}`` line each."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ChunkStore, RealServingEngine, Request
+
+    results = {}
+    for arch, layers, int8, prefixes in FAMILY_SERVES:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+        t0 = time.perf_counter()
+        model = Model(cfg, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                      device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rows = moe_row_invariance(model, params, dev) if cfg.moe is not None else None
+
+        def serve(quant):
+            store = (None if quant is None else
+                     ChunkStore(chunk_size=16, quant=quant, default_tier="host", device=dev))
+            eng = RealServingEngine(model, params, system="cacheflow", stages=2,
+                                    chunk_size=256, l_delta=1024, max_batch=2,
+                                    kvstore=store, datapath="fused", device=dev, seed=0)
+            reqs = [Request(f"r{n}", 0.0, n, 64, decode_len=16) for n in prefixes]
+            t0 = time.perf_counter()
+            rep = eng.serve(reqs, verify=True)
+            torch.cuda.synchronize()
+            outs = {r.request_id: eng.executor.outputs(r.request_id) for r in reqs}
+            return (eng, reqs, rep, {r: o["tokens"] for r, o in outs.items()},
+                    {r: o["first_logits"].clone() for r, o in outs.items()},
+                    time.perf_counter() - t0)
+
+        # this path: every launch counter from 0 just before, read just after
+        zero_counters()
+        torch.cuda.reset_peak_memory_stats()
+        eng, reqs, rep, tokens, logits, serve_s = serve("int8" if int8 else None)
+        launches = read_counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ex = eng.executor
+        errs = {r.request_id: ex.verify_errs.get(r.request_id, {}) for r in reqs}
+        bad = [r.request_id for r in reqs
+               if len(ex.outputs(r.request_id)["tokens"]) != r.decode_len
+               or tuple(logits[r.request_id].shape) != (1, cfg.vocab_size)
+               or not bool(torch.isfinite(logits[r.request_id]).all())
+               or set(errs[r.request_id]) != verified_fields(cfg)]
+        strategies = {r.request_id: ex._live[r.request_id]["plans"][0].strategy
+                      for r in reqs}
+        del eng, ex
+        if int8:
+            _, _, _, tokens_a, logits_a, _ = serve("none")
+            _, _, _, tokens_b, logits_b, _ = serve("none")
+        else:
+            tokens_a, logits_a = tokens, logits
+            _, _, _, tokens_b, logits_b, _ = serve(None)
+        diff = first_difference(tokens_a, tokens_b)
+        logits_stable = all(torch.equal(logits_a[r], logits_b[r]) for r in logits_a)
+        prof = None
+        if profile and arch == "qwen3-30b-a3b":
+            with moe_ranges():
+                prof = profile_serve(lambda: serve("int8"), ranges=MOE_RANGES)
+            print(json.dumps({"moe_profile": prof}))
+        out = dict(
+            card=card, arch=arch, layers=cfg.num_layers, config_layers=full.num_layers,
+            cut=None if layers is None else f"{layers} of {full.num_layers} layers, "
+                                            f"full width",
+            d_model=cfg.d_model, hq=cfg.num_heads, hkv=cfg.num_kv_heads, dh=cfg.head_dim,
+            mla=cfg.mla is not None,
+            experts=None if cfg.moe is None else f"{cfg.moe.num_experts} top-"
+                                                 f"{cfg.moe.top_k}",
+            input_mode=cfg.input_mode, params=model.num_params(params), init_s=init_s,
+            serve_s=serve_s, ttft_p50_s=rep.stats["p50"], tpot_mean_s=rep.stats["tpot_mean"],
+            serve_wall_s=rep.stats["serve_wall"], completed=rep.stats["completed"],
+            peak_mem_gb=peak_gb, store="int8" if int8 else None,
+            verify_max_err=max(x for e in errs.values() for x in e.values()),
+            verified=sorted(r for r, e in errs.items() if e), strategies=strategies,
+            tokens_stable=diff is None, tokens_first_difference=diff,
+            first_logits_stable=logits_stable, tokens={r: t[:6] for r, t in tokens.items()},
+            row_invariance_512_vs_256=rows,
+            launches={k: v for k, v in launches.items() if v})
+        print(json.dumps({"family_serve": out}))
+        results[arch] = dict(out, launches=launches, profile=prof)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rep.stats["completed"] != 4 or bad:
+            raise AssertionError(f"{arch}: {rep.stats['completed']} of 4 completed, "
+                                 f"bad outputs or unverified requests {bad}")
+        path = (() if cfg.mla is not None else DENSE_KERNELS) + (STORE_KERNELS if int8 else ())
+        missing = [n for n in path if launches[n] == 0]
+        stray = [n for n in DENSE_KERNELS if cfg.mla is not None and launches[n]]
+        if missing or stray:
+            raise AssertionError(f"{arch}: kernels not launched during its serve {missing}, "
+                                 f"attention kernels on the MLA path {stray}")
+        if not logits_stable or diff is not None:
+            raise AssertionError(f"{arch}: outputs moved between two unquantized serves: "
+                                 f"tokens at {diff}, first logits equal {logits_stable}")
     return results
 
 
@@ -2359,7 +2722,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kres = kernel_phase(dev, card)
     print(json.dumps({"kernel_phase_s": time.perf_counter() - t0}))
-    sres = hres = rres = dres = None
+    sres = hres = rres = dres = fres = None
     if args.decode_sweep:
         decode_sweep(dev)
     if args.prefill_sweep:
@@ -2371,7 +2734,7 @@ def main(argv=None) -> int:
     if args.rglru_sweep:
         rglru_sweep(dev)
     if not (args.kernels_only or args.decode_sweep or args.prefill_sweep
-            or args.wkv_sweep or args.quant_sweep or args.rglru_sweep):
+              or args.wkv_sweep or args.quant_sweep or args.rglru_sweep):
         sres = serve_phase(dev, card, args.profile)
         # the engine and executor hold each other: collect the cycle so the
         # next path's peak memory does not count the last path's leftovers
@@ -2384,45 +2747,54 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         dres = dense_phase(dev, card)
+        t0 = time.perf_counter()
+        fres = family_phase(dev, card, args.profile)
+        print(json.dumps({"family_phase_s": time.perf_counter() - t0}))
         cli_phase(dev, card)
         sanitizer_cow_check(dev, card)
 
-    # (kernel-phase entry, source, TPU kernel, the serve whose shapes it has)
     fp = ("src/repro_torch/csrc/flash_prefill.cu",
           "src/repro/kernels/flash_prefill/kernel.py:81")
     fd = ("src/repro_torch/csrc/flash_decode.cu",
           "src/repro/kernels/flash_decode/kernel.py:69")
     kr = ("src/repro_torch/csrc/kv_restore.cu", "src/repro/kernels/kv_restore/kernel.py:55")
     kd = ("src/repro_torch/csrc/kv_quant.cu", "src/repro/kernels/kv_quant/kernel.py:84")
-    table = [("flash_prefill", *fp, sres), ("flash_prefill_suffix", *fp, sres),
-             ("flash_decode", *fd, sres),
-             ("kv_restore", *kr, sres), ("kv_restore_raw", *kr, sres),
-             ("kv_quantize", "src/repro_torch/csrc/kv_quant.cu",
-              "src/repro/kernels/kv_quant/kernel.py:54", sres),
-             ("kv_dequantize", *kd, sres), ("kv_dequantize_run", *kd, sres),
-             ("flash_prefill_dh256", *fp, hres), ("flash_prefill_dh256_suffix", *fp, hres),
-             ("flash_decode_dh256", *fd, hres),
-             ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
-              "src/repro/kernels/rglru_scan/kernel.py:49", hres),
-             ("rglru_scan_step", "src/repro_torch/csrc/rglru_scan.cu",
-              "src/repro/kernels/rglru_scan/kernel.py:49", hres),
-             ("wkv6", "src/repro_torch/csrc/wkv6.cu",
-              "src/repro/kernels/rwkv6_scan/kernel.py:56", rres),
-             ("wkv6_step", "src/repro_torch/csrc/wkv6.cu",
-              "src/repro/kernels/rwkv6_scan/kernel.py:56", rres)]
+    kq = ("src/repro_torch/csrc/kv_quant.cu", "src/repro/kernels/kv_quant/kernel.py:54")
+    rg = ("src/repro_torch/csrc/rglru_scan.cu", "src/repro/kernels/rglru_scan/kernel.py:49")
+    wk = ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/rwkv6_scan/kernel.py:56")
+    # (entry, the wrapper's count it reads, source, TPU kernel, the serve
+    # whose shapes it has): the suffix and raw entries time the same wrapper
+    # (kv_dequantize_run counts the run form apart)
+    table = [("flash_prefill", "flash_prefill", *fp, sres),
+             ("flash_prefill_suffix", "flash_prefill", *fp, sres),
+             ("flash_decode", "flash_decode", *fd, sres),
+             ("kv_restore", "kv_restore", *kr, sres),
+             ("kv_restore_raw", "kv_restore", *kr, sres),
+             ("kv_quantize", "kv_quantize", *kq, sres),
+             ("kv_dequantize", "kv_dequantize", *kd, sres),
+             ("kv_dequantize_run", "kv_dequantize_run", *kd, sres),
+             ("flash_prefill_dh256", "flash_prefill", *fp, hres),
+             ("flash_prefill_dh256_suffix", "flash_prefill", *fp, hres),
+             ("flash_decode_dh256", "flash_decode", *fd, hres),
+             ("rglru_scan", "rglru_scan", *rg, hres),
+             ("rglru_scan_step", "rglru_scan_step", *rg, hres),
+             ("wkv6", "wkv6", *wk, rres),
+             ("wkv6_step", "wkv6_step", *wk, rres)]
+    served_by = {**(dres or {}), **(fres or {})}
     for tag, arch, *_ in DENSE_SHAPES:
-        served = dres[arch] if dres else None
-        table += [(f"flash_prefill_{tag}", *fp, served),
-                  (f"flash_prefill_{tag}_suffix", *fp, served),
-                  (f"flash_decode_{tag}", *fd, served)]
+        served = served_by.get(arch)
+        table += [(f"flash_prefill_{tag}", "flash_prefill", *fp, served),
+                  (f"flash_prefill_{tag}_suffix", "flash_prefill", *fp, served),
+                  (f"flash_decode_{tag}", "flash_decode", *fd, served)]
+    for tag, arch, *_ in FAMILY_STORE:
+        served = served_by.get(arch)
+        table += [(f"kv_quantize_{tag}", "kv_quantize", *kq, served),
+                  (f"kv_dequantize_{tag}", "kv_dequantize", *kd, served),
+                  (f"kv_dequantize_run_{tag}", "kv_dequantize_run", *kd, served),
+                  (f"kv_restore_{tag}", "kv_restore", *kr, served)]
     rows = []
-    for name, src, replaces, served in table:
+    for name, counter, src, replaces, served in table:
         k = kres[name]
-        # the suffix and raw entries time the same wrapper: its count covers
-        # both (kv_dequantize_run counts the run form apart)
-        counter = name
-        for tag in ("_dh256", "_dh64", "_g3", "_g12", "_suffix", "_raw"):
-            counter = counter.replace(tag, "")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": served["launches"][counter] if served else None,
@@ -2435,6 +2807,10 @@ def main(argv=None) -> int:
                                           "rows_a_thread", "rounding_ratio") if x in k}})
         if name == "rglru_scan" and served:
             rows[-1]["launches_by_S"] = served["rglru_scan_launches_by_S"]
+    # own µs that no trace read: named, not left to pass as empty
+    print(json.dumps({"kernels_us_missing": sorted(
+        f"{name}.{key}" for name, k in kres.items() if isinstance(k, dict)
+        for key, v in k.items() if key.startswith("kernels_us") and v is None)}))
     print(json.dumps({"kernels": rows}))
     for src in ("flash_prefill.cu", "wkv6.cu", "kv_quant.cu", "kv_restore.cu", "rglru_scan.cu"):
         if spills.get(src):

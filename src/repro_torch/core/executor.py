@@ -438,9 +438,16 @@ class RestorationExecutor:
                 live["tokens_out"] = []
                 live["step_logits"] = []
                 live["pos"] = req.n_tokens
-            # greedy feed (the port's models take token inputs only);
-            # argmax ties resolve to the first index, as jnp.argmax
-            inp = torch.argmax(live["last_logits"], dim=-1).to(torch.int32)
+            if cfg.input_mode == "tokens":
+                # greedy feed; argmax ties resolve to the first index, as
+                # jnp.argmax
+                inp = torch.argmax(live["last_logits"], dim=-1).to(torch.int32)
+            else:
+                # embedding frontends have no token feedback path: a
+                # pseudo-embedding keyed on the position, from a host
+                # generator seeded with it (not the reference's bits)
+                gen = torch.Generator().manual_seed(live["pos"])
+                inp = torch.randn((1, cfg.d_model), generator=gen)
             logits, cache = m.decode_step(self.params, inp, live["cache"],
                                           live["pos"])
             live["cache"] = cache

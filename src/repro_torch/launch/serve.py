@@ -14,9 +14,8 @@ the default ``--device cuda`` the named config runs at FULL width in bf16
 (the attention kernels take head_dim 64/128/256 in bf16, which
 ``.reduced()`` is not) and is refused before anything is allocated when its
 bf16 weights exceed the card's free memory; ``--device cpu`` runs
-``.reduced()`` in f32, as the reference does.  Simulation takes every arch
-of the registry; ``--real`` exits naming the missing module for an arch
-whose family is not ported yet (MLA, MoE, embedding input):
+``.reduced()`` in f32, as the reference does.  Both modes take every arch
+of the registry:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --real \
       --requests 4 --system cacheflow --kv-quant int8
   PYTHONPATH=src python -m repro_torch.launch.serve --real --device cpu \
@@ -69,16 +68,11 @@ def _real_config(arch: str, device):
     """(cfg, device) of ``--real``: the named config at full width on a card
     (the attention kernels take head_dim 64/128/256 in bf16, which
     ``.reduced()`` is not), ``.reduced()`` on the CPU as in the reference.
-    Exits naming the missing module for an arch whose family is not ported,
-    and, on a card, for a config whose bf16 weights exceed the card's free
+    On a card, exits for a config whose bf16 weights exceed the card's free
     memory, before anything is allocated.  A CUDA device without a card
     raises."""
-    from repro_torch.models.model import resolve_device, unported_modules
+    from repro_torch.models.model import resolve_device
     cfg = get_config(arch)
-    missing = unported_modules(cfg)
-    if missing:
-        raise SystemExit(f"--real --arch {arch}: not ported yet: "
-                         f"{'; '.join(missing)} (simulation takes every arch)")
     dev = resolve_device(device)
     if dev.type != "cuda":
         return cfg.reduced(), dev
@@ -177,18 +171,21 @@ def _replay(args) -> None:
         # one host generator for every draw: distinct ground truth per rid
         gen = torch.Generator().manual_seed(args.seed)
 
-        def tokens(n):
+        def draw(n):
+            """(1, n) token ids, or (1, n, D) N(0, 1) embeddings."""
+            if cfg.input_mode != "tokens":
+                return torch.randn((1, n, cfg.d_model), generator=gen)
             return torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
                                  dtype=torch.int32)
         for r in trace.requests:
-            ex.remember(r["request_id"], tokens(r["n_tokens"]))
+            ex.remember(r["request_id"], draw(r["n_tokens"]))
             # lifecycle traces (schema v2) also re-execute the captured
             # suffix prefill + decode steps on device
             new_len = r.get("new_len", 0)
             decode_len = r.get("decode_len", 0)
             if new_len > 0 or decode_len > 0:
                 ex.set_suffix(r["request_id"],
-                              tokens(new_len) if new_len else None,
+                              draw(new_len) if new_len else None,
                               decode_len=decode_len)
         res = replay_trace(trace, ex, verify=True, trace_out=recorder)
         mode = "replay-real"

@@ -1,12 +1,14 @@
 """KV-cache dicts of stacked tensors, and the paged block pool.
 
-Counterpart of ``repro.models.kvcache`` for attention, RG-LRU and RWKV-6
-caches.
+Counterpart of ``repro.models.kvcache`` for attention (GQA or MLA), RG-LRU
+and RWKV-6 caches.
 The cache is a flat dict of stacked tensors (leading axis = layer slot of
 that kind) so the restoration executor can slice per-layer,
 per-token-range views:
 
   k, v : (n_attn, B, S_cache, H_kv, Dh)
+  ckv  : (n_attn, B, S_cache, kv_lora + rope)  MLA latent [c_kv || k_rope]
+         (instead of k, v)
   kpos : (n_attn, S_cache) int32   position of each cache slot (-1 = empty;
                                    ring buffer for windowed attention)
   conv : (n_rec, B, conv_w - 1, W) RG-LRU conv1d tail (compute dtype)
@@ -53,19 +55,19 @@ def cache_seq_len(cfg: ModelConfig, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
     kinds = cfg.layer_kinds()
-    if cfg.mla is not None:
-        raise NotImplementedError("the port's caches hold dense attention KV, "
-                                  "RG-LRU and RWKV-6 state only (MLA not yet "
-                                  "ported)")
     n_attn = kinds.count("attention")
     n_rec = kinds.count("recurrent")
     n_rwkv = kinds.count("rwkv")
     s = cache_seq_len(cfg, max_len)
     cache: dict = {}
     if n_attn:
-        shape = (n_attn, batch, s, cfg.num_kv_heads, cfg.head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
-        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        if cfg.mla is not None:
+            shape = (n_attn, batch, s, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim)
+            cache["ckv"] = torch.zeros(shape, dtype=dtype, device=device)
+        else:
+            shape = (n_attn, batch, s, cfg.num_kv_heads, cfg.head_dim)
+            cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+            cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["kpos"] = torch.full((n_attn, s), -1, dtype=torch.int32,
                                    device=device)
     if n_rec:
@@ -358,7 +360,7 @@ class PagedKVCache:
 
 
 def grow_cache(cfg: ModelConfig, cache: dict, new_len: int) -> dict:
-    """Extend the attention KV buffers (k/v/kpos) so the cache holds
+    """Extend the attention KV buffers (k/v or ckv, and kpos) so the cache holds
     ``new_len`` tokens — how suffix prefill and decode append onto a
     restored prefix cache.  New tensors (zeros, kpos -1) receive a copy of
     the old contents; recurrent state fields are length-free and pass

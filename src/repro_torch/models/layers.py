@@ -117,3 +117,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """(..., S) int positions -> (..., S, d_model) f32 sinusoidal embedding
+    on the positions' device: sines of the first half, cosines of the
+    second, as the reference."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device)
+                      / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,14 +1,20 @@
 """Model builder: config -> functional model with the restoration-chunk,
 suffix-prefill and decode entry points.
 
-Counterpart of ``repro.models.model`` for dense attention stacks, the
-RecurrentGemma hybrid (RG-LRU and local-attention layers) and RWKV-6
-stacks.  Parameters are
-a plain dict of tensors: ``embed``, ``unembed``, ``final_norm`` and
-``layers`` — a list of per-layer dicts (the reference stacks identical
-layers for ``lax.scan`` and unrolls heterogeneous stacks; PyTorch runs
+Counterpart of ``repro.models.model`` for every family of the registry:
+dense and MoE attention stacks (GQA or MLA), the RecurrentGemma hybrid
+(RG-LRU and local-attention layers), RWKV-6 stacks, and the embedding-input
+frontends (the model takes (B, S, D) embeddings instead of token ids).
+Parameters are a plain dict of tensors: ``embed`` (token models only),
+``unembed``, ``final_norm`` and ``layers`` — a list of per-layer dicts (the
+reference stacks identical layers for ``lax.scan`` and unrolls a
+non-uniform prefix such as DeepSeek's first dense layer; PyTorch runs
 eagerly, so the port keeps one dict per layer).  :func:`params_from_jax`
 converts the reference's ``Model.init`` pytree into this layout.
+
+Serving is dropless: the port's MoE dispatch ignores the config's
+``capacity_factor`` (the reference's ``Model`` replaces it by 0), so
+chunked recomputation reproduces the full-prefill KV.
 
 Every entry point runs on the model's device, which defaults to CUDA;
 ``device="cpu"`` must be asked for.  Positions live on the host (see
@@ -24,7 +30,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.kvcache import init_cache, layer_slots
-from repro_torch.models.layers import apply_norm, embed_init, init_norm
+from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
+                                       sinusoidal_positions)
 
 
 def resolve_device(device) -> torch.device:
@@ -37,28 +44,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def unported_modules(cfg: ModelConfig) -> list:
-    """The modules the port still lacks to build ``cfg`` (empty when
-    :class:`Model` takes it)."""
-    missing = []
-    if cfg.mla is not None:
-        missing.append("repro_torch.models.mla (multi-head latent attention)")
-    if cfg.moe is not None:
-        missing.append("repro_torch.models.moe (mixture of experts)")
-    if cfg.input_mode != "tokens":
-        missing.append("the embedding-input frontend of repro_torch.models.model")
-    if cfg.position not in ("rope", "none"):
-        missing.append(f"the {cfg.position} positions of repro_torch.models.layers")
-    return missing
-
-
 class Model:
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.float32,
                  compute_dtype=torch.float32, device="cuda"):
-        missing = unported_modules(cfg)
-        if missing:
-            raise NotImplementedError(f"{cfg.name}: not ported yet: "
-                                      f"{'; '.join(missing)}")
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.compute_dtype = compute_dtype
@@ -71,13 +59,16 @@ class Model:
     def init(self, generator: torch.Generator) -> dict:
         """Random weights from ``generator`` (which must live on the
         model's device): truncated-normal fan-in for dense weights, N(0,
-        0.02) for embeddings, ones for norm scales — the reference's
-        distributions, not its values."""
+        0.02) for embeddings, ones for norm scales, the MoE router in f32 —
+        the reference's distributions, not its values.  An embedding-input
+        model has no ``embed`` table."""
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
         cfg, dt = self.cfg, self.param_dtype
-        p: dict = {"embed": embed_init((cfg.vocab_size, cfg.d_model), dt, generator)}
+        p: dict = {}
+        if cfg.input_mode == "tokens":
+            p["embed"] = embed_init((cfg.vocab_size, cfg.d_model), dt, generator)
         if not cfg.tie_embeddings:
             p["unembed"] = embed_init((cfg.d_model, cfg.vocab_size), dt, generator)
         p["final_norm"] = init_norm(cfg.norm, cfg.d_model, dt, self.device)
@@ -95,9 +86,18 @@ class Model:
     # Embedding / head
     # ------------------------------------------------------------------
     def embed(self, params, inputs, positions=None):
-        """inputs: (B, S) int token ids (host or device)."""
-        ids = inputs.to(self.device, torch.long)
-        return params["embed"][ids].to(self.compute_dtype)
+        """inputs: (B, S) int token ids, or (B, S, D) float embeddings for an
+        embedding-input model (host or device); positions (B, S) (host or
+        device) are read for sinusoidal positions only."""
+        cfg = self.cfg
+        if cfg.input_mode == "tokens":
+            x = params["embed"][inputs.to(self.device, torch.long)].to(self.compute_dtype)
+        else:
+            x = inputs.to(self.device, self.compute_dtype)
+        if cfg.position == "sinusoidal":
+            x = x + sinusoidal_positions(positions.to(self.device),
+                                         cfg.d_model).to(x.dtype)
+        return x
 
     def unembed(self, params, x):
         cfg = self.cfg
@@ -113,8 +113,8 @@ class Model:
         # (the reference's .at[slot].set of the whole stacked array); the
         # attention writes the chunk's KV through views of the slot
         if kind == "attention":
-            view = {"k": cache["k"][slot], "v": cache["v"][slot],
-                    "kpos": cache["kpos"][slot]}
+            fields = ("ckv", "kpos") if self.cfg.mla is not None else ("k", "v", "kpos")
+            view = {f: cache[f][slot] for f in fields}
             x, _ = tfm.attention_layer_cached(self.cfg, p, x, positions, view)
             return x, cache
         if kind == "recurrent":
@@ -154,7 +154,8 @@ class Model:
         return x, cache
 
     def decode_step(self, params, tokens, cache, pos: int):
-        """tokens: (B,) int; pos: int.  Returns (logits (B,V), cache)."""
+        """tokens: (B,) int (or (B, D) embeddings); pos: int.  Returns
+        (logits (B,V), cache)."""
         b = tokens.shape[0]
         positions = torch.full((b, 1), int(pos), dtype=torch.int32)
         x = self.embed(params, tokens[:, None], positions)
@@ -162,8 +163,8 @@ class Model:
         return self.unembed(params, x)[:, 0], cache
 
     def prefill_chunk(self, params, inputs, cache, start_pos: int):
-        """Chunk prefill against an existing cache: inputs (B,C); returns
-        (last logits, cache)."""
+        """Chunk prefill against an existing cache: inputs (B,C) (or
+        (B,C,D) embeddings); returns (last logits, cache)."""
         b, c = inputs.shape[:2]
         positions = (int(start_pos) + torch.arange(c, dtype=torch.int32)).expand(b, c)
         x = self.embed(params, inputs, positions)
@@ -197,13 +198,15 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 
 # float leaves the reference keeps in f32 whatever the parameter dtype
-F32_LEAVES = ("lam", "decay_base", "bonus_u", "mix_base", "cm_mix_k", "cm_mix_r")
+F32_LEAVES = ("lam", "decay_base", "bonus_u", "mix_base", "cm_mix_k", "cm_mix_r",
+              "router")
 
 
 def params_from_jax(tree: dict, *, dtype=torch.float32, device="cuda") -> dict:
     """The reference ``Model.init`` pytree (as numpy arrays: ``prefix_layers``
     list + stacked ``scan_layers``; a hybrid has every layer in
-    ``prefix_layers``) -> the port's parameter dict."""
+    ``prefix_layers``, DeepSeek its first dense layer) -> the port's
+    parameter dict."""
     dev = resolve_device(device)
 
     def conv(node, key=None):

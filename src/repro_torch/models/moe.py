@@ -1,0 +1,126 @@
+"""Mixture-of-Experts FFN (DeepSeek-style shared + routed, top-k).
+
+Counterpart of ``repro.models.moe``, scatter dispatch: the (token, k)
+pairs are scattered into a per-expert buffer ``(E, cap, D)``, every
+expert's FFN runs as one batched product over that buffer, and the results
+are gathered back and combined with the router weights.  Every shape is
+fixed by (tokens, experts, top_k), none by the routing, so the host never
+waits on the device inside a layer and no Python loop runs over experts.
+
+The dispatch is dropless by construction (``cap`` = tokens, whatever the
+config's ``capacity_factor``), which is what makes chunked recomputation
+reproduce the full-prefill KV and a token's output independent of its
+batch mates.  The price is known: the products run over all E experts'
+slots, E / top_k times the FLOPs the routed tokens need, and a decode step
+reads every expert's weights.  The reference's capacity path (a smaller
+``cap`` that drops pairs, and ``_moe_group_einsum``) serves training only
+and waits for the training slice.
+
+``apply_moe``'s ``num_groups`` runs groups of the sequence axis one after
+another (the reference's ``lax.scan``), as the reference's full-sequence
+path uses it; the serving path does not.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig, MoEConfig
+from repro_torch.models.layers import _gelu, apply_mlp, dense_init, init_mlp
+
+
+def init_moe(cfg: ModelConfig, dtype, generator: torch.Generator) -> dict:
+    """Router in f32 whatever ``dtype`` (as the reference); stacked expert
+    weights (E, d, f) / (E, f, d), fan-in over d / f."""
+    m, d = cfg.moe, cfg.d_model
+    gated = cfg.activation in ("swiglu", "geglu")
+    p = {"router": dense_init((d, m.num_experts), torch.float32, generator)}
+    if gated:
+        p["w_gate"] = dense_init((m.num_experts, d, m.expert_d_ff), dtype, generator,
+                                 in_axis=1)
+    p["w_up"] = dense_init((m.num_experts, d, m.expert_d_ff), dtype, generator, in_axis=1)
+    p["w_down"] = dense_init((m.num_experts, m.expert_d_ff, d), dtype, generator,
+                             in_axis=1)
+    shared_ff = m.shared_d_ff or m.num_shared_experts * m.expert_d_ff
+    if shared_ff:
+        p["shared"] = init_mlp(d, shared_ff, cfg.activation, dtype, generator)
+    return p
+
+
+def _expert_ffn(params: dict, xb: torch.Tensor, activation: str) -> torch.Tensor:
+    """xb: (E, C, D) -> (E, C, D) through per-expert weights."""
+    if activation in ("swiglu", "geglu"):
+        act = F.silu if activation == "swiglu" else _gelu
+        h = act(torch.bmm(xb, params["w_gate"].to(xb.dtype))) \
+            * torch.bmm(xb, params["w_up"].to(xb.dtype))
+    else:
+        h = _gelu(torch.bmm(xb, params["w_up"].to(xb.dtype)))
+    return torch.bmm(h, params["w_down"].to(xb.dtype))
+
+
+def top_k_lower_index_first(probs: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last axis, ties in
+    ascending index order as ``jax.lax.top_k`` gives them (``torch.topk``
+    leaves the order of ties unspecified): a stable descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str):
+    """One group of tokens through the routed experts, dropless.
+
+    x: (T, D) -> (y (T, D), aux_loss f32 scalar)
+    """
+    t, d = x.shape
+    e, k = moe.num_experts, moe.top_k
+    logits = x.float() @ params["router"].float()                             # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = top_k_lower_index_first(probs, k)                          # (T, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # slot of each (token, k) pair among its expert's hits: every pair has
+    # one of its own in the (E, T, D) buffer
+    flat_e = top_i.reshape(t * k)                                             # (T·k,)
+    onehot = (flat_e[:, None] == torch.arange(e, device=x.device)).to(torch.int32)
+    pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    slot = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0].long()           # (T·k,)
+
+    buf = torch.zeros((e, t, d), dtype=x.dtype, device=x.device)
+    buf[flat_e, slot] = x.repeat_interleave(k, dim=0)
+
+    y_buf = _expert_ffn(params, buf, activation)                              # (E, T, D)
+
+    # gather back + combine in the reference's order and dtype
+    y_rep = y_buf[flat_e, slot]                                               # (T·k, D)
+    w = top_p.reshape(t * k, 1).to(y_rep.dtype)
+    y = (y_rep * w).reshape(t, k, d).sum(dim=1)
+
+    # load-balancing aux loss (Switch style)
+    me = probs.mean(dim=0)
+    ce = onehot.sum(dim=0).float() / (t * k)          # bincount, with no host sync
+    aux = e * torch.sum(me * ce) * moe.router_aux_loss
+    return y, aux
+
+
+def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, num_groups: int = 0):
+    """x: (B, S, D) -> (y, aux_loss).  ``num_groups`` > 1 (dividing S) runs
+    groups of the sequence axis one after another, each group's dispatch
+    over its B·S/num_groups tokens; aux is the groups' mean."""
+    m = cfg.moe
+    b, s, d = x.shape
+    if num_groups <= 1 or s % num_groups:
+        y, aux = moe_group(params, x.reshape(b * s, d), m, cfg.activation)
+        y = y.reshape(b, s, d)
+    else:
+        sg = s // num_groups
+        ys, auxs = [], []
+        for gi in range(num_groups):
+            yg, auxg = moe_group(params, x[:, gi * sg:(gi + 1) * sg].reshape(b * sg, d),
+                                 m, cfg.activation)
+            ys.append(yg.reshape(b, sg, d))
+            auxs.append(auxg)
+        y = torch.cat(ys, dim=1)
+        aux = torch.stack(auxs).mean()
+    if "shared" in params:
+        y = y + apply_mlp(params["shared"], x, cfg.activation)
+    return y, aux

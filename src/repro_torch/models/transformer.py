@@ -1,10 +1,10 @@
 """Per-layer blocks (pre-norm residual) shared by the stack in ``model.py``.
 
-Counterpart of ``repro.models.transformer`` for dense attention, RG-LRU
-and RWKV-6 layers.  Restoration recompute steps and single-token decode
-are the same path with C = chunk or C = 1; a recurrent layer carries its
-state (conv tail, h) from one chunk to the next, an RWKV layer its token
-shifts and wkv matrix.
+Counterpart of ``repro.models.transformer`` for attention (GQA or MLA),
+RG-LRU and RWKV-6 layers, each with a dense or MoE FFN.  Restoration
+recompute steps and single-token decode are the same path with C = chunk
+or C = 1; a recurrent layer carries its state (conv tail, h) from one
+chunk to the next, an RWKV layer its token shifts and wkv matrix.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
@@ -24,7 +26,8 @@ def init_layer(cfg: ModelConfig, layer_idx: int, dtype,
     p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev),
          "norm2": init_norm(cfg.norm, cfg.d_model, dtype, dev)}
     if kind == "attention":
-        p["attn"] = attn.init_attention(cfg, dtype, generator)
+        p["attn"] = (mla_mod.init_mla(cfg, dtype, generator) if cfg.mla is not None
+                     else attn.init_attention(cfg, dtype, generator))
     elif kind == "recurrent":
         p["rglru"] = rglru_mod.init_rglru_block(cfg, dtype, generator)
     elif kind == "rwkv":
@@ -32,25 +35,42 @@ def init_layer(cfg: ModelConfig, layer_idx: int, dtype,
         return p  # rwkv blocks have no separate MLP (channel mix is inside)
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
-    p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.activation, dtype, generator)
+    # FFN: MoE from layer first_k_dense on, dense (dense_d_ff) before it
+    if cfg.moe is not None and layer_idx >= cfg.moe.first_k_dense:
+        p["moe"] = moe_mod.init_moe(cfg, dtype, generator)
+    else:
+        d_ff = (cfg.moe.dense_d_ff if (cfg.moe is not None and cfg.moe.dense_d_ff)
+                else cfg.d_ff)
+        p["mlp"] = init_mlp(cfg.d_model, d_ff, cfg.activation, dtype, generator)
     return p
 
 
-def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
-    return apply_mlp(p["mlp"], h, cfg.activation)
+def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor):
+    """(y, aux): the MoE's load-balancing loss (an f32 tensor), or 0.0 for a
+    dense FFN (no device op for a loss nothing reads)."""
+    if "moe" in p:
+        return moe_mod.apply_moe(p["moe"], h, cfg)
+    return apply_mlp(p["mlp"], h, cfg.activation), 0.0
 
 
 def attention_layer_cached(cfg: ModelConfig, p: dict, x, positions,
                            layer_cache: dict):
-    """layer_cache: {"k","v","kpos"} views of THIS layer's cache slot,
-    updated in place.  Returns (x', layer_cache)."""
+    """layer_cache: {"k","v","kpos"} or, with MLA, {"ckv","kpos"} views of
+    THIS layer's cache slot, updated in place.  Returns (x', layer_cache)."""
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
-    a, k, v, kpos = attn.attention_chunk(cfg, p["attn"], h, positions,
-                                         layer_cache["k"], layer_cache["v"],
-                                         layer_cache["kpos"])
+    if cfg.mla is not None:
+        a, ckv, kpos = mla_mod.mla_chunk(cfg, p["attn"], h, positions,
+                                         layer_cache["ckv"], layer_cache["kpos"])
+        new_cache = {"ckv": ckv, "kpos": kpos}
+    else:
+        a, k, v, kpos = attn.attention_chunk(cfg, p["attn"], h, positions,
+                                             layer_cache["k"], layer_cache["v"],
+                                             layer_cache["kpos"])
+        new_cache = {"k": k, "v": v, "kpos": kpos}
     x = x + a
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    return x + _ffn(cfg, p, h), {"k": k, "v": v, "kpos": kpos}
+    f, _ = _ffn(cfg, p, h)
+    return x + f, new_cache
 
 
 def recurrent_layer_full(cfg: ModelConfig, p: dict, x, conv_tail, h0):
@@ -60,7 +80,7 @@ def recurrent_layer_full(cfg: ModelConfig, p: dict, x, conv_tail, h0):
     r, conv_tail, h_last = rglru_mod.rglru_full(cfg, p["rglru"], h, conv_tail, h0)
     x = x + r
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    return x + _ffn(cfg, p, h), conv_tail, h_last
+    return x + _ffn(cfg, p, h)[0], conv_tail, h_last
 
 
 def rwkv_layer_full(cfg: ModelConfig, p: dict, x, shift_tm, shift_cm, wkv):

@@ -260,12 +260,16 @@ class RealServingEngine:
         self.seed = seed
 
     def _inputs(self, n: int):
-        """(1, n) int32 host token ids from a generator re-seeded per draw:
-        same-length draws give the same tokens (as the reference's single
-        PRNG key does — what makes store dedup fire across same-length
-        requests), different lengths give unrelated tokens."""
+        """(1, n) int32 host token ids — or, for an embedding-input model,
+        (1, n, D) f32 N(0, 1) host embeddings — from a generator re-seeded
+        per draw: same-length draws give the same inputs (as the
+        reference's single PRNG key does — what makes store dedup fire
+        across same-length requests), different lengths unrelated ones."""
+        cfg = self.model.cfg
         gen = torch.Generator().manual_seed(self.seed * 1_000_003 + n)
-        return torch.randint(0, self.model.cfg.vocab_size, (1, n),
+        if cfg.input_mode != "tokens":
+            return torch.randn((1, n, cfg.d_model), generator=gen)
+        return torch.randint(0, cfg.vocab_size, (1, n),
                              generator=gen, dtype=torch.int32)
 
     def remember(self, r: Request):

@@ -9,8 +9,8 @@ reference's keys, its trace replays on the device and analytically.  The
 opt-ins (``--sanitize``, ``--telemetry``, ``--metrics-out`` and their
 environment switches) print the reference's report in sim mode, and run
 with no violation in real mode; every arch of the registry simulates as in
-the reference; ``--real`` on an arch whose family is not ported (MLA, MoE,
-embedding input) exits naming the module, and on a card a config whose bf16
+the reference and builds in the port; ``--real --device cpu`` serves the
+MoE, MLA and embedding-input configs, and on a card a config whose bf16
 weights exceed its free memory exits naming the bytes.
 """
 import contextlib
@@ -308,21 +308,43 @@ def test_sim_report_every_arch_same_as_reference(cli, arch):
     assert json.loads(out)["lifecycle"]["completed"] == 8
 
 
-@pytest.mark.parametrize("arch,module", [
-    ("deepseek-v2-236b", "repro_torch.models.mla"),
-    ("deepseek-moe-16b", "repro_torch.models.moe"),
-    ("qwen3-30b-a3b", "repro_torch.models.moe"),
-    ("pixtral-12b", "embedding-input frontend"),
-    ("musicgen-large", "embedding-input frontend"),
-])
-def test_real_unported_family_exits_naming_the_module(cli, arch, module):
-    """The CLI and ``Model`` refuse by one rule and name the same module."""
-    for device in ("cpu", "cuda"):
-        with pytest.raises(SystemExit, match=module.replace(".", r"\.")):
-            cli("torch", ["--real", "--device", device, "--arch", arch])
+FAMILY_ARCHS = ["qwen3-30b-a3b", "deepseek-moe-16b", "deepseek-v2-236b", "pixtral-12b",
+                "musicgen-large"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_real_cpu_serves_the_moe_mla_and_embedding_configs(cli, arch):
+    """``--real --device cpu`` serves each MoE, MLA and embedding-input
+    config (``.reduced()``, f32) from its chunk store, every restored cache
+    verified, with the report keys of the reference's real mode."""
+    rep = json.loads(cli("torch", ["--real", "--device", "cpu", "--arch", arch,
+                                   "--requests", "2", "--decode-len", "2"]))
+    assert rep["mode"] == "real" and rep["lifecycle"]["completed"] == 2
+    assert rep["datapath"]["fused_loads"] > 0 and "storage" in rep
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_registry_config_builds(arch):
     from repro_torch.models import Model
-    with pytest.raises(NotImplementedError, match=module.replace(".", r"\.")):
-        Model(get_config(arch).reduced(), device="cpu")
+    cfg = get_config(arch).reduced()
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    assert len(params["layers"]) == cfg.num_layers
+    assert ("embed" in params) == (cfg.input_mode == "tokens")
+
+
+def test_real_on_a_card_refuses_deepseek_v2_by_free_memory(cli, monkeypatch):
+    """deepseek-v2-236b at full depth: 471 GB of bf16 weights against an
+    80 GB card's free memory, refused before anything is allocated."""
+    import repro_torch.models.model as model_mod
+    monkeypatch.setattr(model_mod, "resolve_device", lambda d: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (79_000_000_000,
+                                                                    80_000_000_000))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: "an 80 GB card")
+    weights = 2 * get_config("deepseek-v2-236b").param_counts()["total"]
+    assert 460e9 < weights < 480e9
+    with pytest.raises(SystemExit, match=f"take {weights} bytes"):
+        cli("torch", ["--real", "--arch", "deepseek-v2-236b"])
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-110b", "mistral-large-123b"])
