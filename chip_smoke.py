@@ -13,6 +13,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --rglru-sweep     # kernel phase + rglru_scan over (C, T, stages)
     python3 chip_smoke.py --quant-only      # build + kv_quantize alone (any tree)
     python3 chip_smoke.py --promote-profile # build + a traced qwen3 serve's promotion (any tree)
+    python3 chip_smoke.py --train-only      # build + the train phase alone
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the shapes
@@ -59,7 +60,17 @@ rwkv6-7b for real, the int8 qwen3-8b call again under ``--sanitize
 qwen3-30b-a3b simulated, and qwen3-30b-a3b and llama3.1-8b for real, each
 ``--real`` call required to launch its path's kernels; one ``{"cli": [...]}`` line gives
 each call's wall seconds, TTFT, TPOT and launches.  Then the sanitizer's
-copy-on-write check runs on a CUDA block pool.  The second-to-last line of
+copy-on-write check runs on a CUDA block pool.  Last, the train phase
+trains through the port in f32: ``rglru_scan``'s gradient Function (its
+backward the same kernels over reversed time) against autograd of the
+plain loop on the card and against the CPU at W 2560; one step of
+full-width qwen1.5-0.5b and of full-width recurrentgemma-2b cut to three
+layers (which launches ``rglru_scan`` both ways), each against the CPU,
+every parameter's gradient finite and non-zero; 100 steps of full-width
+qwen1.5-0.5b through ``launch.train.run`` (ms a step, tokens/s, peak
+memory) and the reduced model's loss falling at the reference test's
+setting; a restart from a manifest after an injected failure; and the
+refusal of a CUDA RWKV forward under gradients.  The second-to-last line of
 stdout is a ``{"kernels": [...]}`` summary; the last line is the ok/device
 record.  Any failure raises (exit code != 0).  Imports nothing of JAX or
 ``repro``.
@@ -71,6 +82,7 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1638,6 +1650,7 @@ def counters():
             "kv_dequantize_run": (kv_dequantize, "run_launches"),
             "rglru_scan": (rglru_scan, "launches"),
             "rglru_scan_step": (rglru_scan, "step_launches"),
+            "rglru_scan_reverse": (rglru_scan, "reverse_launches"),
             "wkv6": (wkv6, "launches"), "wkv6_step": (wkv6, "step_launches")}
 
 
@@ -1656,7 +1669,9 @@ def read_counters() -> dict:
     chunked (tiled) kernel's are those less the one-step kernel's.
     ``kv_dequantize`` counts both of its forms; ``kv_dequantize_run`` the run
     form alone (the datapath's promotions), and ``kv_dequantize_chunk`` the
-    one-chunk form (``ChunkStore._decode_device``)."""
+    one-chunk form (``ChunkStore._decode_device``).  ``rglru_scan_reverse``
+    counts the calls over reversed time that its gradient Function's
+    backward makes (among both kernels' counts)."""
     out = {n: getattr(w, attr) for n, (w, attr) in counters().items()}
     out["kv_dequantize_chunk"] = out["kv_dequantize"] - out["kv_dequantize_run"]
     out["wkv6"] -= out["wkv6_step"]
@@ -2660,6 +2675,344 @@ def sanitizer_cow_check(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The train phase: training through the port on the card
+# ---------------------------------------------------------------------------
+
+# rglru_scan's backward (the same kernels over reversed time) against autograd
+# of the plain loop on the card: the same products in the same order, and the
+# kernels repeat the plain version's arithmetic, so equal bit for bit.
+# Against the same Function on the CPU: the CPU's expf and the card's differ in
+# the last bit, and the difference rides the chain of up to 256 steps, so
+# max |card - CPU| <= RGLRU_GRAD_CPU_TOL * max |CPU| per gradient (measured:
+# PERF.md).
+RGLRU_GRAD_CPU_TOL = 1e-4
+# One train step's loss, grad_norm and gradients, card against CPU, both f32
+# (TF32 off): cuBLAS and the CPU's BLAS sum in other orders.  |Δloss| <=
+# STEP_LOSS_TOL * loss, |Δgrad_norm| <= STEP_NORM_TOL * grad_norm, and every
+# leaf's max |Δ| <= STEP_LEAF_TOL * its largest CPU gradient.
+STEP_LOSS_TOL = 1e-4
+STEP_NORM_TOL = 1e-3
+STEP_LEAF_TOL = 1e-2
+# A run resumed from its manifest on the card against an uninterrupted run:
+# the losses after the resume within RESUME_TOL * loss (the card's reductions
+# need not repeat bit for bit from one run to the next).
+RESUME_TOL = 1e-3
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_CLI_STEPS = 100        # full width: B 8, S 128
+# The full-width run's peak learning rate: AdamWConfig's default.  The CLI's
+# default, 3e-3 (the reference's for its reduced models), made the
+# full-width loss rise over 100 steps (PERF.md).
+TRAIN_CLI_LR = 3e-4
+HYBRID_TRAIN = dict(B=2, S=64, layers=3)   # recurrentgemma-2b cut to (rec, rec, attn)
+
+
+def rglru_backward_check(dev, card: str) -> dict:
+    """(a) rglru_scan's gradient Function at W 2560, B 2, S = 1, 64, 256,
+    random gh and gl: on the card against autograd of rglru_scan_plain on
+    the card (torch.equal) and against the same Function on the CPU
+    (RGLRU_GRAD_CPU_TOL); each case counts the forward and reverse launches.
+    Then the reversed call alone at the hybrid's train shape (B 2, S 64),
+    timed beside the plain version, for the kernels line."""
+    import torch
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_grad, rglru_scan_plain
+
+    def grads(fn, ins, gh, gl):
+        ts = [t.clone().requires_grad_(True) for t in ins]
+        h, hl = fn(*ts)
+        return torch.autograd.grad((h, hl), ts, (gh, gl))
+
+    g = torch.Generator().manual_seed(25)
+    cases = []
+    for s in (1, 64, 256):
+        cpu = [-0.5 * torch.rand(2, s, 2560, generator=g), torch.randn(2, s, 2560, generator=g),
+               torch.randn(2, 2560, generator=g)]
+        gh, gl = torch.randn(2, s, 2560, generator=g), torch.randn(2, 2560, generator=g)
+        ins = [t.to(dev) for t in cpu]
+        zero_counters()
+        got = grads(rglru_scan_grad, ins, gh.to(dev), gl.to(dev))
+        torch.cuda.synchronize()
+        fwd = rglru_scan.launches - rglru_scan.reverse_launches
+        rev = rglru_scan.reverse_launches
+        plain = grads(rglru_scan_plain, ins, gh.to(dev), gl.to(dev))
+        host = grads(rglru_scan_grad, cpu, gh, gl)
+        names = ("log_a", "b", "h0")
+        case = dict(B=2, S=s, W=2560, forward_launches=fwd, reverse_launches=rev,
+                    bit_exact_vs_plain={n: torch.equal(a, b) for n, a, b in zip(names, got, plain)},
+                    max_abs_err_vs_plain=max(float((a - b).abs().max()) for a, b in zip(got, plain)),
+                    rel_err_vs_cpu={n: float((a.cpu() - b).abs().max() / b.abs().max())
+                                    for n, a, b in zip(names, got, host)})
+        cases.append(case)
+        ok = (all(case["bit_exact_vs_plain"].values()) and fwd == 1 and rev == 1
+              and max(case["rel_err_vs_cpu"].values()) <= RGLRU_GRAD_CPU_TOL)
+        if not ok:
+            raise AssertionError(f"rglru_scan backward on the card: {case}")
+    # the reversed call the backward makes at the hybrid's train shape
+    bsz, s = HYBRID_TRAIN["B"], HYBRID_TRAIN["S"]
+    la = (-0.5 * torch.rand(bsz, s, 2560, generator=g)).to(dev)
+    la_rev = torch.cat([torch.zeros_like(la[:, :1]), la.flip(1)[:, :-1]], 1).contiguous()
+    b_rev = torch.randn(bsz, s, 2560, generator=g).to(dev)
+    h0 = torch.zeros(bsz, 2560, device=dev)
+    h, hl = rglru_scan(la_rev, b_rev, h0, reverse=True)
+    scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+
+    def flush():
+        scratch.zero_()
+    bms, by = bound(nbytes(la_rev, b_rev, h0, h, hl), 3 * la_rev.numel(), F32_FLOP_PER_S)
+
+    def call():
+        return rglru_scan(la_rev, b_rev, h0, reverse=True)
+    out = dict(card=card, cases=cases, tol_vs_cpu=RGLRU_GRAD_CPU_TOL, tol_vs_plain=0.0,
+               max_abs_err=max(c["max_abs_err_vs_plain"] for c in cases),
+               ms=time_ms(call, flush=flush),
+               kernels_us=kernels_us(call, flush, match="rglru_scan"),
+               kernels_us_warm=kernels_us(call, match="rglru_scan"),
+               plain_ms=time_ms(lambda: rglru_scan_plain(la_rev, b_rev, h0), flush=flush,
+                                iters=7),
+               bound_ms=bms, bound_by=by, library_ms=None, plan=rglru_plan_of(la_rev, b_rev, h0),
+               shape=f"reversed log_a, b ({bsz},{s},2560) f32, h0 ({bsz},2560) f32")
+    print(json.dumps({"train_rglru_backward": out}))
+    return out
+
+
+def grad_report(grads) -> dict:
+    """Every gradient leaf not None, finite and not all zero."""
+    import torch
+    from repro_torch.models.model import _leaves
+    leaves = list(_leaves(grads))
+    bad = [i for i, g in enumerate(leaves)
+           if g is None or not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0]
+    return dict(leaves=len(leaves), bad_leaves=bad)
+
+
+def card_vs_cpu_step(cfg, dev, card: str, bsz: int, s: int, count_rglru: bool) -> dict:
+    """One training step's loss, grad_norm and gradients of ``cfg`` (f32,
+    remat "dots"), weights from Model.init on the CPU copied to the card,
+    the batch from ``batch_at`` on the CPU: card against CPU.  The card's
+    step runs between zero_counters and read_counters."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.model import _leaves
+    from repro_torch.training import DataConfig, batch_at, lm_loss, value_and_grad
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.train_step import tree_like
+
+    host_m = build_model(cfg, device="cpu", remat_policy="dots")
+    host_p = host_m.init(torch.Generator().manual_seed(0))
+    card_m = build_model(cfg, device=dev, remat_policy="dots")
+    card_p = tree_like(host_p, [t.to(dev) for t in _leaves(host_p)])
+    batch = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=bsz), 0)
+    t0 = time.perf_counter()
+    (host_loss, _), host_g = value_and_grad(lm_loss, host_m, host_p, batch)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    (card_loss, _), card_g = value_and_grad(lm_loss, card_m, card_p,
+                                            {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = read_counters()
+    hn, cn = float(global_norm(host_g)), float(global_norm(card_g))
+    leaf_err = max(float((c.cpu() - h).abs().max()) / max(float(h.abs().max()), 1e-30)
+                   for c, h in zip(_leaves(card_g), _leaves(host_g)))
+    out = dict(card=card, arch=cfg.name, layers=cfg.num_layers, B=bsz, S=s,
+               params=sum(t.numel() for t in _leaves(host_p)),
+               loss_card=float(card_loss), loss_cpu=float(host_loss),
+               grad_norm_card=cn, grad_norm_cpu=hn, worst_leaf_rel_err=leaf_err,
+               tol=dict(loss=STEP_LOSS_TOL, grad_norm=STEP_NORM_TOL, leaf=STEP_LEAF_TOL),
+               grads=grad_report(card_g), card_s=card_s, cpu_s=host_s,
+               launches={k: v for k, v in launches.items() if v})
+    ok = (abs(out["loss_card"] - out["loss_cpu"]) <= STEP_LOSS_TOL * abs(out["loss_cpu"])
+          and abs(cn - hn) <= STEP_NORM_TOL * hn and leaf_err <= STEP_LEAF_TOL
+          and not out["grads"]["bad_leaves"])
+    if count_rglru:
+        ok = ok and launches["rglru_scan"] > 0 and launches["rglru_scan_reverse"] > 0
+    if not ok:
+        raise AssertionError(f"train step on the card against the CPU: {out}")
+    return out
+
+
+def train_cli_check(dev, card: str) -> dict:
+    """(d) ``launch.train.run`` at full width and depth on the card, and the
+    reduced model at the reference test's setting."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, DataConfig, batch_at, init_opt_state,
+                                      make_train_step)
+
+    bsz, s = 8, 128
+    res = train_cli.run(TRAIN_ARCH, reduced=False, steps=TRAIN_CLI_STEPS, global_batch=bsz,
+                        seq_len=s, peak_lr=TRAIN_CLI_LR, log_every=20, device=dev)
+    losses = [res.losses[i] for i in range(TRAIN_CLI_STEPS)]
+    ms = [res.step_seconds[i] * 1e3 for i in range(2, TRAIN_CLI_STEPS)]
+    step_ms = statistics.median(ms)
+    first10, last10 = statistics.fmean(losses[:10]), statistics.fmean(losses[-10:])
+    full = dict(card=card, arch=TRAIN_ARCH, steps=TRAIN_CLI_STEPS, B=bsz, S=s,
+                peak_lr=TRAIN_CLI_LR, step_ms_median=step_ms,
+                step_ms_first=[res.step_seconds[i] * 1e3 for i in (0, 1)],
+                tokens_per_s=bsz * s / (step_ms / 1e3), peak_gb=res.peak_bytes / 1e9,
+                loss_first=losses[0], loss_last=losses[-1], mean_first10=first10,
+                mean_last10=last10, all_finite=all(math.isfinite(x) for x in losses),
+                **step_split(dev, bsz, s))
+    print(json.dumps({"train_cli": full}))
+    if not (full["all_finite"] and last10 < first10):
+        raise AssertionError(f"training {TRAIN_ARCH} through launch.train on the card: {full}")
+    cfg = get_config(TRAIN_ARCH).reduced()
+    m = build_model(cfg, remat_policy="dots", device=dev)
+    params = m.init(torch.Generator(dev).manual_seed(0))
+    step = make_train_step(m, AdamWConfig(peak_lr=3e-3, warmup_steps=5, total_steps=50))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8)
+    state, reduced_losses = init_opt_state(params), []
+    for i in range(25):
+        params, state, metrics = step(params, state, batch_at(dc, i, dev))
+        reduced_losses.append(float(metrics["loss"]))
+    red = dict(card=card, arch=cfg.name, steps=25, peak_lr=3e-3, warmup=5, S=32, B=8,
+               loss_first=reduced_losses[0], loss_last=reduced_losses[-1],
+               fall=reduced_losses[0] - reduced_losses[-1])
+    print(json.dumps({"train_reduced": red}))
+    if not red["fall"] > 0.3:
+        raise AssertionError(f"reduced {TRAIN_ARCH} on the card: loss fell {red['fall']}")
+    return dict(full=full, reduced=red)
+
+
+def step_split(dev, bsz: int, s: int) -> dict:
+    """Where a full-width step's time goes: the median host-clock ms (ended
+    by a synchronise) of a whole train step under remat "none" and "dots",
+    and of its gradient alone (forward and backward) under "none"; steps 3
+    to 5 of five, the batch of step 0."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, DataConfig, batch_at, init_opt_state,
+                                      lm_loss, make_train_step, value_and_grad)
+
+    cfg = get_config(TRAIN_ARCH)
+    batch = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=bsz), 0, dev)
+
+    def median_ms(fn):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[2:])
+
+    out = {}
+    for policy in ("none", "dots"):
+        m = build_model(cfg, remat_policy=policy, device=dev)
+        params = m.init(torch.Generator(dev).manual_seed(0))
+        state = [init_opt_state(params)]
+        step = make_train_step(m, AdamWConfig(peak_lr=TRAIN_CLI_LR))
+        out[f"step_ms_remat_{policy}"] = median_ms(lambda: step(params, state[0], batch))
+        if policy == "none":
+            out["grad_ms_remat_none"] = median_ms(lambda: value_and_grad(lm_loss, m, params, batch))
+        del m, params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_restart_check(dev, card: str) -> dict:
+    """(e) 24 steps of the reduced model, a checkpoint every 4, a host failure
+    injected at step 10: the run resumes from step 8's manifest and reaches
+    step 23, its losses after the resume within RESUME_TOL of an
+    uninterrupted run's."""
+    import shutil
+
+    from repro_torch.launch import train as train_cli
+    kw = dict(reduced=True, steps=24, global_batch=8, seq_len=32, ckpt_every=4,
+              log_every=8, device=dev)
+    dirs = [os.path.join(OUT_DIR, f"train_ckpt_{n}") for n in ("cut", "whole")]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    cut = train_cli.run(TRAIN_ARCH, ckpt_dir=dirs[0], fail_at_step=10, **kw)
+    whole = train_cli.run(TRAIN_ARCH, ckpt_dir=dirs[1], **kw)
+    after = range(cut.resumed_from[0] + 1, 24) if cut.resumed_from else range(0)
+    err = max((abs(cut.losses[i] - whole.losses[i]) / abs(whole.losses[i]) for i in after),
+              default=None)
+    out = dict(card=card, last_step=cut.last_step, restarts=cut.restarts,
+               resumed_from=cut.resumed_from, max_rel_loss_diff_after_resume=err,
+               bit_exact=all(cut.losses[i] == whole.losses[i] for i in after), tol=RESUME_TOL)
+    print(json.dumps({"train_restart": out}))
+    if not (cut.last_step == 23 and cut.restarts == 1 and cut.resumed_from == [8]
+            and err is not None and err <= RESUME_TOL):
+        raise AssertionError(f"restart on the card: {out}")
+    return out
+
+
+def rwkv_refusal_check(dev, card: str) -> dict:
+    """(f) A grad-enabled forward of the reduced rwkv6-7b on the card raises
+    NO_BACKWARD, and so does ``launch.train.run`` on an RWKV arch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan import NO_BACKWARD
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.models.model import _leaves
+
+    cfg = get_config("rwkv6-7b").reduced()
+    m = build_model(cfg, device=dev)
+    params = m.init(torch.Generator(dev).manual_seed(0))
+    for p in _leaves(params):
+        p.requires_grad_(True)
+    msgs = []
+    for attempt in (lambda: m.forward(params, torch.zeros(1, 8, dtype=torch.long)),
+                    lambda: train_cli.run("rwkv6-7b", reduced=True, steps=1, device=dev)):
+        try:
+            attempt()
+            msgs.append(None)
+        except RuntimeError as e:
+            msgs.append(str(e))
+    out = dict(card=card, forward_raised=msgs[0], run_raised=msgs[1])
+    print(json.dumps({"train_rwkv_refusal": out}))
+    if not (msgs[0] == NO_BACKWARD and msgs[1] is not None and NO_BACKWARD in msgs[1]):
+        raise AssertionError(f"RWKV under gradients on the card: {out}")
+    return out
+
+
+def train_phase(dev, card: str) -> dict:
+    """Training through the port on the card: (a) rglru_scan's backward, (b)
+    one full-width qwen1.5-0.5b step against the CPU, (c) a 3-layer
+    full-width recurrentgemma-2b step against the CPU (the hybrid's train
+    path, which launches rglru_scan both ways), (d) launch.train at full
+    width and the reduced model's loss, (e) restart from a manifest, (f) the
+    RWKV refusal."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    res = {"rglru_backward": rglru_backward_check(dev, card)}
+    res["qwen_step"] = card_vs_cpu_step(get_config(TRAIN_ARCH), dev, card, 2, 64, False)
+    print(json.dumps({"train_step": res["qwen_step"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    hyb = dataclasses.replace(get_config("recurrentgemma-2b"), num_layers=HYBRID_TRAIN["layers"])
+    assert hyb.layer_kinds() == ("recurrent", "recurrent", "attention")
+    res["hybrid_step"] = card_vs_cpu_step(hyb, dev, card, HYBRID_TRAIN["B"], HYBRID_TRAIN["S"],
+                                          True)
+    print(json.dumps({"train_step": res["hybrid_step"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["cli"] = train_cli_check(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["restart"] = train_restart_check(dev, card)
+    res["rwkv_refusal"] = rwkv_refusal_check(dev, card)
+    print(json.dumps({"train_phase_s": time.perf_counter() - t0}))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2687,6 +3040,9 @@ def main(argv=None) -> int:
     ap.add_argument("--quant-only", action="store_true",
                     help="build, then check and time kv_quantize alone at the serve's "
                          "chunk through its public call (runs on older trees too)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build, then run the train phase alone (its kernels line "
+                         "holds rglru_scan's reversed call only)")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)   # lines survive a kill
 
@@ -2718,11 +3074,14 @@ def main(argv=None) -> int:
     if args.promote_profile:
         promote_profile(dev, card)
         return 0
+    if args.train_only:
+        print(json.dumps({"kernels": [train_row(train_phase(dev, card))]}))
+        return finish(spills)
 
     t0 = time.perf_counter()
     kres = kernel_phase(dev, card)
     print(json.dumps({"kernel_phase_s": time.perf_counter() - t0}))
-    sres = hres = rres = dres = fres = None
+    sres = hres = rres = dres = fres = tres = None
     if args.decode_sweep:
         decode_sweep(dev)
     if args.prefill_sweep:
@@ -2752,6 +3111,9 @@ def main(argv=None) -> int:
         print(json.dumps({"family_phase_s": time.perf_counter() - t0}))
         cli_phase(dev, card)
         sanitizer_cow_check(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tres = train_phase(dev, card)
 
     fp = ("src/repro_torch/csrc/flash_prefill.cu",
           "src/repro/kernels/flash_prefill/kernel.py:81")
@@ -2807,11 +3169,34 @@ def main(argv=None) -> int:
                                           "rows_a_thread", "rounding_ratio") if x in k}})
         if name == "rglru_scan" and served:
             rows[-1]["launches_by_S"] = served["rglru_scan_launches_by_S"]
+    if tres is not None:
+        rows.append(train_row(tres))
     # own µs that no trace read: named, not left to pass as empty
     print(json.dumps({"kernels_us_missing": sorted(
         f"{name}.{key}" for name, k in kres.items() if isinstance(k, dict)
         for key, v in k.items() if key.startswith("kernels_us") and v is None)}))
     print(json.dumps({"kernels": rows}))
+    return finish(spills)
+
+
+def train_row(tres: dict) -> dict:
+    """The kernels line's entry for rglru_scan's call over reversed time (the
+    backward of its gradient Function): timed at the hybrid's train shape,
+    launches from the hybrid's train step."""
+    k = tres["rglru_backward"]
+    return {"name": "rglru_scan_reverse", "route": "cuda",
+            "source": "src/repro_torch/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan/kernel.py:49",
+            "launches": tres["hybrid_step"]["launches"].get("rglru_scan_reverse", 0),
+            "path": "train " + tres["hybrid_step"]["arch"],
+            **{x: k[x] for x in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "kernels_us", "kernels_us_warm", "plan")},
+            "bound_share": k["bound_ms"] / k["ms"]}
+
+
+def finish(spills: dict) -> int:
+    """Fail on a spilling instantiation; else print the ok/device record."""
+    import torch
     for src in ("flash_prefill.cu", "wkv6.cu", "kv_quant.cu", "kv_restore.cu", "rglru_scan.cu"):
         if spills.get(src):
             raise AssertionError(f"{src} spills: {spills[src]}")

@@ -9,6 +9,18 @@ whose blocks each own a strip of ``C`` channels and stream ``log_a`` and
 Both step the recurrence in time order with the plain version's arithmetic
 (``expf``, a multiply, then an add), so they are bit-exact with
 :func:`rglru_scan_plain` and one call equals chained calls.
+
+:func:`rglru_scan_grad` is the same scan with gradients
+(:class:`RglruScan`): its backward is one more call of the same kernels
+over reversed time, since the gradient reaching ``h_t``,
+
+    lam_t = gh_t + [t = S-1] gl + exp(log_a_{t+1}) lam_{t+1},
+
+is the recurrence run backwards: ``rglru_scan(cat(0, flip(log_a)[:S-1]),
+flip(gh) with gl added to its first row, 0)`` flipped back.  Then db =
+lam, dlog_a_t = (lam_t h_{t-1}) exp(log_a_t) with h_{-1} = h0, and dh0 =
+exp(log_a_0) lam_0: the products autograd of the plain loop forms, in its
+order, so on the CPU the gradients equal that autograd's bit for bit.
 """
 from __future__ import annotations
 
@@ -106,11 +118,12 @@ def _shape(log_a, b, h0) -> tuple[int, int, int]:
     return tuple(log_a.shape)
 
 
-def rglru_scan(log_a, b, h0, *, variant=None):
+def rglru_scan(log_a, b, h0, *, variant=None, reverse: bool = False):
     """The kernels on CUDA tensors (f32, contiguous): the one-step kernel
     when S == 1, else the tiled kernel, as :func:`rglru_plan` picks
     (``variant`` forces the tiled kernel's build); the plain version on CPU
-    tensors."""
+    tensors.  ``reverse`` marks the backward's call over reversed time,
+    counted apart in ``reverse_launches``."""
     if log_a.device.type == "cpu":
         return rglru_scan_plain(log_a, b, h0)
     bsz, s, w = _shape(log_a, b, h0)
@@ -129,10 +142,42 @@ def rglru_scan(log_a, b, h0, *, variant=None):
                                          _build.stream_of(log_a))
         _build.check_launch("rglru_scan", rc)
     rglru_scan.launches += 1
+    rglru_scan.reverse_launches += reverse
     rglru_scan.launches_by_len[s] += 1
     return h, h_last
 
 
 rglru_scan.launches = 0          # every call that launched a kernel
 rglru_scan.step_launches = 0     # of those, the one-step kernel's
+rglru_scan.reverse_launches = 0  # of those, the backward's (reversed time)
 rglru_scan.launches_by_len = collections.Counter()   # launches by S
+
+
+class RglruScan(torch.autograd.Function):
+    """``rglru_scan`` with gradients; the backward is the same scan over
+    reversed time (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, log_a, b, h0):
+        h, h_last = rglru_scan(log_a, b, h0)
+        ctx.save_for_backward(log_a, h0, h)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, gh, gl):
+        log_a, h0, h = ctx.saved_tensors
+        zero = torch.zeros_like(log_a[:, :1])
+        la_rev = torch.cat([zero, log_a.flip(1)[:, :-1]], dim=1).contiguous()
+        b_rev = gh.flip(1).contiguous()
+        b_rev[:, 0] += gl
+        lam, _ = rglru_scan(la_rev, b_rev, torch.zeros_like(h0), reverse=True)
+        lam = lam.flip(1)
+        a = torch.exp(log_a)
+        h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
+        return (lam * h_prev) * a, lam, lam[:, 0] * a[:, 0]
+
+
+def rglru_scan_grad(log_a, b, h0):
+    """:func:`rglru_scan` through :class:`RglruScan`: (h, h_last), with
+    gradients to log_a, b and h0 on the CPU and on the card alike."""
+    return RglruScan.apply(log_a, b, h0)

@@ -7,6 +7,11 @@ the TPU kernel's interface ``(r, k, v, w, u, s0) -> (y, s_last)``:
 Two CUDA kernels (``csrc/wkv6.cu``): a one-step kernel for decode (S = 1)
 and a chunked kernel for S >= 2 that walks the sequence in chunks of
 ``CHUNK`` steps and builds every decay factor as a product of decays.
+
+Neither has a backward kernel yet.  A tensor the kernels write carries no
+``grad_fn``, so on CUDA tensors the wrapper refuses to run where a
+gradient is wanted (``NO_BACKWARD``) rather than let it stop silently at
+the scan; on CPU tensors the plain version stays differentiable.
 """
 from __future__ import annotations
 
@@ -24,6 +29,10 @@ HEAD_SIZE = 64               # the head size the kernels are built for
 CHUNKED_VARIANTS = ((16, 32, 2), (16, 32, 1), (16, 64, 2), (16, 16, 1), (32, 32, 2))
 CHUNKED = (16, 32, 2)
 CHUNK = CHUNKED[0]           # steps a chunk
+NO_BACKWARD = ("wkv6: no backward kernel yet (ROADMAP.md, 'Modules to port' "
+               "item 2: the wkv6 backward kernel), so no gradient can flow "
+               "through the RWKV-6 scan on the card; train RWKV on the CPU "
+               "(device='cpu'), or run the forward under torch.no_grad()")
 
 
 def wkv6_plain(r, k, v, w, u, s0, dtype=torch.float32):
@@ -88,9 +97,12 @@ def wkv6(r, k, v, w, u, s0, *, variant=CHUNKED):
     """The kernels on CUDA tensors (f32, contiguous, head size 64): the
     one-step kernel when S == 1, else the chunked kernel built as
     ``variant`` (one of ``CHUNKED_VARIANTS``); the plain version on CPU
-    tensors."""
+    tensors.  On CUDA tensors that want a gradient it raises
+    ``NO_BACKWARD``."""
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, s0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, s0)):
+        raise RuntimeError(NO_BACKWARD)
     if not all(t.is_contiguous() for t in (r, k, v, w, u, s0)):
         raise ValueError("wkv6: the CUDA kernels take contiguous r, k, v, w, u "
                          "and s0")

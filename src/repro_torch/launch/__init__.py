@@ -1,2 +1,3 @@
 """Entry points of the PyTorch port: ``python -m repro_torch.launch.serve``
-(counterpart of ``repro.launch.serve``)."""
+(counterpart of ``repro.launch.serve``) and ``python -m
+repro_torch.launch.train`` (of ``repro.launch.train``)."""

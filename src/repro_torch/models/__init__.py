@@ -1,2 +1,3 @@
 from repro_torch.models.kvcache import init_cache, layer_slots  # noqa: F401
-from repro_torch.models.model import Model, params_from_jax, resolve_device  # noqa: F401
+from repro_torch.models.model import (Model, build_model, params_from_jax,  # noqa: F401
+                                      resolve_device)

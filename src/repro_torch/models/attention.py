@@ -1,11 +1,19 @@
-"""GQA attention over a chunk of tokens against a kpos-addressed cache.
+"""GQA / MQA / windowed attention: the full-sequence path and the chunked
+path against a kpos-addressed cache.
 
-Counterpart of ``repro.models.attention`` (the chunked path only: the
-restoration recompute step, suffix prefill and decode).  Queries of a chunk
+Counterpart of ``repro.models.attention``.  The chunked path is the
+restoration recompute step, suffix prefill and decode: queries of a chunk
 attend to [cache || chunk] and the chunk's KV is written into the cache.
-On a CUDA tensor the attention runs in the port's hand-written kernels —
+On a CUDA tensor it runs in the port's hand-written kernels —
 ``flash_prefill`` for a chunk of C > 1 tokens, ``flash_decode`` for C = 1;
 on a CPU tensor their plain versions run.
+
+The full-sequence path (``attention_full``: training, ``Model.forward``
+and ``Model.prefill``) is plain products in the activation dtype, as the
+reference computes it outside any Pallas kernel: the masked softmax over
+(S, S) scores, or above ``FLASH_THRESHOLD`` keys (or with
+``backend="flash"``) the blocked online softmax over key blocks.  Training
+runs in f32, which the attention kernels (bf16) do not take.
 
 Positions live on the host: they are known there, the kernels take the
 query offset as a launch argument, and the cache slots they address are
@@ -19,6 +27,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models.layers import apply_rope, dense_init, rms_head_norm
+
+NEG_INF = -1e30
+FLASH_THRESHOLD = 8192        # the blocked form above this many keys
+FLASH_BLOCK = 1024
 
 
 def init_attention(cfg: ModelConfig, dtype, generator: torch.Generator) -> dict:
@@ -106,3 +118,90 @@ def attention_chunk(cfg: ModelConfig, params: dict, x: torch.Tensor,
                             window=cfg.attn_window)
     out = out.reshape(b, c, cfg.num_heads * cfg.head_dim)
     return out @ params["wo"].to(x.dtype), k_cache, v_cache, kpos
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence path (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def gqa_scores_naive(q, k, v, mask, scale):
+    """q (B,S,Hq,Dh), k/v (B,T,Hk,Dh), mask (B,S,T) or (S,T) bool ->
+    (B,S,Hq,Dv).  Scores scaled and softmaxed in f32, the probabilities
+    cast back to q's dtype before P·V, as the reference."""
+    b, s, hq, dh = q.shape
+    hk = k.shape[2]
+    qg = q.reshape(b, s, hk, hq // hk, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, hq, v.shape[-1])
+
+
+def gqa_flash(q, k, v, q_pos, k_pos, scale, window: int, block: int = FLASH_BLOCK):
+    """Online-softmax attention over key blocks of ``block``: q (B,S,Hq,Dh),
+    k (B,T,Hk,Dh), v (B,T,Hk,Dv), q_pos (B,S) and k_pos (B,T) int (k_pos < 0
+    marks an empty slot).  The reference's ``_gqa_flash`` less its mesh
+    constraints: the same running max, sum and accumulator in f32, the
+    probabilities cast to q's dtype before P·V."""
+    b, s, hq, dh = q.shape
+    t, hk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = hq // hk
+    if t % block:
+        pad = block - t % block
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
+        t += pad
+    qg = q.reshape(b, s, hk, g, dh)
+    m = torch.full((b, hk, g, s), NEG_INF, dtype=torch.float32, device=q.device)
+    den = torch.zeros((b, hk, g, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, s, hk, g, dv), dtype=torch.float32, device=q.device)
+    for lo in range(0, t, block):
+        kc, vc, pc = k[:, lo:lo + block], v[:, lo:lo + block], k_pos[:, lo:lo + block]
+        sc = torch.einsum("bskgd,btkd->bkgst", qg, kc).float() * scale
+        valid = (pc[:, None, :] <= q_pos[:, :, None]) & (pc[:, None, :] >= 0)
+        if window > 0:
+            valid &= pc[:, None, :] > q_pos[:, :, None] - window
+        sc = torch.where(valid[:, None, None], sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        den = den * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkd->bskgd", p.to(q.dtype), vc).float()
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+        m = m_new
+    den = torch.clamp_min(den, 1e-30)
+    out = acc / den.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, s, hq, dv).to(q.dtype)
+
+
+def use_flash(backend: str, s: int) -> bool:
+    """The reference's choice: the blocked form when asked for, or above
+    FLASH_THRESHOLD keys."""
+    if backend not in ("auto", "flash"):
+        raise ValueError(f"unknown attention backend {backend!r}")
+    return backend == "flash" or (backend == "auto" and s > FLASH_THRESHOLD)
+
+
+def attention_full(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                   positions: torch.Tensor, backend: str = "auto"):
+    """Causal self-attention over the whole sequence (windowed if the config
+    says so).  x (B,S,D); positions (B,S) int on x's device.  Returns
+    (out (B,S,D), (k, v)) — callers keep k/v when building a cache."""
+    q, k, v = project_qkv(cfg, params, x, positions)
+    scale = 1.0 / (cfg.qk_head_dim ** 0.5)
+    b, s = x.shape[:2]
+    if use_flash(backend, s):
+        out = gqa_flash(q, k, v, positions, positions, scale, cfg.attn_window)
+    else:
+        i, j = positions[:, :, None], positions[:, None, :]
+        mask = j <= i
+        if cfg.attn_window:
+            mask &= j > i - cfg.attn_window
+        out = gqa_scores_naive(q, k, v, mask, scale)
+    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return out @ params["wo"].to(x.dtype), (k, v)

@@ -1,8 +1,11 @@
-"""DeepSeek-V2 Multi-head Latent Attention (MLA), the chunked path.
+"""DeepSeek-V2 Multi-head Latent Attention (MLA).
 
-Counterpart of ``repro.models.mla`` for restoration recompute steps,
-suffix prefill and decode (``mla_full``, the whole-sequence path, waits
-for the port's full-sequence forward).  The cache stores one row per token
+Counterpart of ``repro.models.mla``.  ``mla_full`` is the whole-sequence
+path (training, ``Model.forward`` and ``prefill``): it decompresses
+per-head K/V and runs the masked softmax, or the blocked online softmax of
+``attention.gqa_flash`` for long sequences, in plain products.
+``mla_chunk`` serves restoration recompute steps, suffix prefill and
+decode.  The cache stores one row per token
 and layer: the compressed latent ``c_kv`` (kv_lora_rank) and the shared
 rotary key (qk_rope_head_dim), ``[c_kv || k_rope]`` — the row the I/O
 pointer moves.  Attention is **absorbed**: W_uk folds into the query and
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.models.attention import gqa_flash, use_flash
 from repro_torch.models.layers import apply_norm, apply_rope, dense_init, init_norm
 
 NEG_INF = -1e30
@@ -78,6 +82,36 @@ def _uk_uv(cfg: ModelConfig, params: dict, dtype):
     wkv_b = params["wkv_b"].to(dtype).reshape(m.kv_lora_rank, cfg.num_heads,
                                               m.qk_nope_head_dim + m.v_head_dim)
     return wkv_b[..., :m.qk_nope_head_dim], wkv_b[..., m.qk_nope_head_dim:]
+
+
+def mla_full(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor,
+             backend: str = "auto"):
+    """Full causal MLA: x (B,S,D), positions (B,S) int on x's device.
+    Returns (out (B,S,D), the latent row [c_kv || k_rope] (B,S,lora+rope)
+    for caching)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = _project_q(cfg, params, x, positions)
+    ckv = compress_kv(cfg, params, x, positions)
+    c_kv, k_rope = ckv.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    kv = (c_kv @ params["wkv_b"].to(x.dtype)).reshape(
+        b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, m.qk_rope_head_dim)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    scale = 1.0 / (cfg.qk_head_dim ** 0.5)
+    if use_flash(backend, s):
+        out = gqa_flash(q, k, v, positions, positions, scale, 0)
+    else:
+        sc = torch.einsum("bshd,bthd->bhst", q, k).float() * scale
+        mask = positions[:, :, None] >= positions[:, None, :]
+        sc = torch.where(mask[:, None], sc, NEG_INF)
+        p = torch.softmax(sc, dim=-1).to(x.dtype)
+        out = torch.einsum("bhst,bthd->bshd", p, v)
+    out = out.reshape(b, s, h * m.v_head_dim)
+    return out @ params["wo"].to(x.dtype), ckv
 
 
 def mla_chunk(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Model builder: config -> functional model with the restoration-chunk,
-suffix-prefill and decode entry points.
+"""Model builder: config -> functional model with the whole-sequence
+(``forward``: training; ``prefill``), restoration-chunk, suffix-prefill and
+decode entry points.
 
 Counterpart of ``repro.models.model`` for every family of the registry:
 dense and MoE attention stacks (GQA or MLA), the RecurrentGemma hybrid
@@ -14,7 +15,15 @@ converts the reference's ``Model.init`` pytree into this layout.
 
 Serving is dropless: the port's MoE dispatch ignores the config's
 ``capacity_factor`` (the reference's ``Model`` replaces it by 0), so
-chunked recomputation reproduces the full-prefill KV.
+chunked recomputation reproduces the full-prefill KV.  ``forward`` takes
+the capacity path only in a model built with ``moe_dropless=False``.
+
+``remat_policy`` rematerialises each layer of ``forward`` in the backward
+pass (``torch.utils.checkpoint``, non-reentrant): ``"full"`` and
+``"nothing"`` save nothing, ``"dots"`` saves the weight products
+(``aten.mm``/``aten.addmm``) and recomputes the rest, batched attention
+products (``aten.bmm``) included — the reference's
+``dots_with_no_batch_dims_saveable``.
 
 Every entry point runs on the model's device, which defaults to CUDA;
 ``device="cpu"`` must be asked for.  Positions live on the host (see
@@ -22,14 +31,18 @@ Every entry point runs on the model's device, which defaults to CUDA;
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.kvcache import init_cache, layer_slots
+from repro_torch.models.kvcache import cache_seq_len, init_cache, layer_slots
 from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
                                        sinusoidal_positions)
 
@@ -46,11 +59,16 @@ def resolve_device(device) -> torch.device:
 
 class Model:
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.float32,
-                 compute_dtype=torch.float32, device="cuda"):
+                 compute_dtype=torch.float32, device="cuda", remat_policy: str = "none",
+                 moe_dropless: bool = True):
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: one of {REMAT_POLICIES}")
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
+        self.remat_policy = remat_policy
+        self.moe_dropless = moe_dropless
         self.slots = layer_slots(cfg)
 
     # ------------------------------------------------------------------
@@ -91,7 +109,10 @@ class Model:
         device) are read for sinusoidal positions only."""
         cfg = self.cfg
         if cfg.input_mode == "tokens":
-            x = params["embed"][inputs.to(self.device, torch.long)].to(self.compute_dtype)
+            # F.embedding, not indexing: on the CPU its backward sums a row's
+            # gradients in a fixed order (indexing's scatter-add does not)
+            x = F.embedding(inputs.to(self.device, torch.long),
+                            params["embed"]).to(self.compute_dtype)
         else:
             x = inputs.to(self.device, self.compute_dtype)
         if cfg.position == "sinusoidal":
@@ -104,6 +125,124 @@ class Model:
         x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         table = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         return x @ table.to(x.dtype)
+
+    # ------------------------------------------------------------------
+    # Full forward (train) / prefill
+    # ------------------------------------------------------------------
+    def _layer_full(self, p, kind, x, positions, states):
+        """One layer, full sequence, from ``states`` (the recurrent and RWKV
+        kinds' carried state).  Returns (x', cache entry or new state, aux)."""
+        cfg = self.cfg
+        if kind == "attention":
+            return tfm.attention_layer_full(cfg, p, x, positions, dropless=self.moe_dropless)
+        if kind == "recurrent":
+            conv, h0 = states
+            x, conv, h = tfm.recurrent_layer_full(cfg, p, x, conv, h0)
+            return x, (conv, h), 0.0
+        if kind == "rwkv":
+            x, stm, scm, wkv = tfm.rwkv_layer_full(cfg, p, x, *states)
+            return x, (stm, scm, wkv), 0.0
+        raise ValueError(kind)
+
+    def fresh_state(self, kind: str, b: int, dtype):
+        """Zero carried state of a recurrent or RWKV layer (None for
+        attention) on the model's device."""
+        cfg, dev = self.cfg, self.device
+        if kind == "recurrent":
+            w = cfg.rglru.lru_width or cfg.d_model
+            return (torch.zeros((b, cfg.rglru.conv1d_width - 1, w), dtype=dtype, device=dev),
+                    torch.zeros((b, w), dtype=torch.float32, device=dev))
+        if kind == "rwkv":
+            hs = cfg.rwkv.head_size
+            return (torch.zeros((b, cfg.d_model), dtype=dtype, device=dev),
+                    torch.zeros((b, cfg.d_model), dtype=dtype, device=dev),
+                    torch.zeros((b, cfg.d_model // hs, hs, hs), dtype=torch.float32,
+                                device=dev))
+        return None
+
+    def run_layer_full(self, params, i: int, x, positions, states=None):
+        """One layer, full-sequence mode, from fresh state unless ``states``
+        is given.  Returns (x', cache entry or state)."""
+        kind = self.cfg.layer_kinds()[i]
+        if states is None:
+            states = self.fresh_state(kind, x.shape[0], x.dtype)
+        return self._layer_full(self.layer_params(params, i), kind, x, positions,
+                                states)[:2]
+
+    def positions_of(self, b: int, s: int, positions=None) -> torch.Tensor:
+        """(B, S) int32 positions on the model's device: 0..S-1 unless given."""
+        if positions is None:
+            return torch.arange(s, dtype=torch.int32, device=self.device).expand(b, s)
+        return positions.to(self.device)
+
+    def forward(self, params, inputs, positions=None, collect_cache: bool = False):
+        """Whole-sequence forward of (B, S) tokens or (B, S, D) embeddings.
+
+        Returns (logits, aux) or, with ``collect_cache``, (logits, aux,
+        entries): each layer's whole-sequence cache entry ({"k", "v"} or
+        {"ckv"}) or final state, in layer order.  Each layer runs under
+        the model's ``remat_policy``."""
+        b, s = inputs.shape[:2]
+        positions = self.positions_of(b, s, positions)
+        x = self.embed(params, inputs, positions)
+        aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
+        entries = []
+        layer = _remat(self._layer_full, self.remat_policy)
+        for i, kind in enumerate(self.cfg.layer_kinds()):
+            x, entry, aux = layer(params["layers"][i], kind, x, positions,
+                                  self.fresh_state(kind, b, x.dtype))
+            aux_total = aux_total + aux
+            if collect_cache:
+                entries.append(entry)
+        logits = self.unembed(params, x)
+        if collect_cache:
+            return logits, aux_total, entries
+        return logits, aux_total
+
+    def prefill(self, params, inputs, positions=None):
+        """Returns (last-token logits (B, V), the cache filled with the
+        sequence; ``grow_cache`` lengthens it for decode)."""
+        b, s = inputs.shape[:2]
+        positions = self.positions_of(b, s, positions)
+        logits, _, entries = self.forward(params, inputs, positions, collect_cache=True)
+        return logits[:, -1], self._entries_to_cache(entries, positions, s)
+
+    def _entries_to_cache(self, entries, positions, s: int,
+                          max_len: Optional[int] = None) -> dict:
+        """The stacked cache dict from per-layer whole-sequence entries: the
+        last ``attn_window`` tokens in their ring slots for a windowed
+        config, else every token at its position; kpos -1 elsewhere."""
+        cfg = self.cfg
+        s_cache = cache_seq_len(cfg, max_len or s)
+        kinds = cfg.layer_kinds()
+        attn_e = [e for e, k in zip(entries, kinds) if k == "attention"]
+        rec_e = [e for e, k in zip(entries, kinds) if k == "recurrent"]
+        rwkv_e = [e for e, k in zip(entries, kinds) if k == "rwkv"]
+        cache: dict = {}
+        pos_row = positions[0].long()
+        if attn_e:
+            lo = s - s_cache if cfg.attn_window and s > s_cache else 0
+            slot = pos_row[lo:] % s_cache
+
+            def to_cache(a):
+                buf = a.new_zeros((a.shape[0], s_cache) + a.shape[2:])
+                buf[:, slot] = a[:, lo:]
+                return buf
+
+            fields = ("ckv",) if cfg.mla is not None else ("k", "v")
+            for f in fields:
+                cache[f] = torch.stack([to_cache(e[f]) for e in attn_e])
+            kpos = torch.full((s_cache,), -1, dtype=torch.int32, device=pos_row.device)
+            kpos[slot] = pos_row[lo:].int()
+            cache["kpos"] = kpos[None].repeat(len(attn_e), 1)
+        if rec_e:
+            cache["conv"] = torch.stack([e[0] for e in rec_e])
+            cache["lru"] = torch.stack([e[1] for e in rec_e])
+        if rwkv_e:
+            cache["shift_tm"] = torch.stack([e[0] for e in rwkv_e])
+            cache["shift_cm"] = torch.stack([e[1] for e in rwkv_e])
+            cache["wkv"] = torch.stack([e[2] for e in rwkv_e])
+        return cache
 
     # ------------------------------------------------------------------
     # Cached-chunk forward (decode C=1; restoration chunks C>1)
@@ -176,6 +315,36 @@ class Model:
     def init_cache(self, batch: int, max_len: int, dtype=None):
         return init_cache(self.cfg, batch, max_len, dtype or self.compute_dtype,
                           self.device)
+
+
+REMAT_POLICIES = ("none", "full", "nothing", "dots")
+# the weight products "dots" saves; everything else, the batched attention
+# products (aten.bmm) among it, is recomputed in the backward pass
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` rematerialised in the backward pass under ``policy``."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def build_model(cfg: ModelConfig, *, param_dtype=torch.float32,
+                compute_dtype=torch.float32, device="cuda", remat_policy: str = "none",
+                moe_dropless: bool = True) -> Model:
+    """The reference's ``build_model``: a ``Model`` of ``cfg`` (the port's
+    holds no compiled state, so there is nothing to cache)."""
+    return Model(cfg, param_dtype=param_dtype, compute_dtype=compute_dtype,
+                 device=device, remat_policy=remat_policy, moe_dropless=moe_dropless)
 
 
 def _leaves(tree):

@@ -7,14 +7,17 @@ are gathered back and combined with the router weights.  Every shape is
 fixed by (tokens, experts, top_k), none by the routing, so the host never
 waits on the device inside a layer and no Python loop runs over experts.
 
-The dispatch is dropless by construction (``cap`` = tokens, whatever the
-config's ``capacity_factor``), which is what makes chunked recomputation
-reproduce the full-prefill KV and a token's output independent of its
-batch mates.  The price is known: the products run over all E experts'
-slots, E / top_k times the FLOPs the routed tokens need, and a decode step
-reads every expert's weights.  The reference's capacity path (a smaller
-``cap`` that drops pairs, and ``_moe_group_einsum``) serves training only
-and waits for the training slice.
+The dispatch is dropless unless the caller asks otherwise (``cap`` =
+tokens, whatever the config's ``capacity_factor``), which is what makes
+chunked recomputation reproduce the full-prefill KV and a token's output
+independent of its batch mates.  The price is known: the products run over
+all E experts' slots, E / top_k times the FLOPs the routed tokens need, and
+a decode step reads every expert's weights.  ``dropless=False`` (a
+``Model`` built with ``moe_dropless=False``, as the reference's train-step
+smoke test builds it) takes the reference's capacity path: ``cap =
+max(1, int(T·k/E·capacity_factor))`` slots an expert, the pairs whose slot
+is ``cap`` or more dropped.  The reference's one-hot einsum dispatch
+(``_moe_group_einsum``) is not ported.
 
 ``apply_moe``'s ``num_groups`` runs groups of the sequence axis one after
 another (the reference's ``lax.scan``), as the reference's full-sequence
@@ -66,8 +69,10 @@ def top_k_lower_index_first(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str):
-    """One group of tokens through the routed experts, dropless.
+def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
+              dropless: bool = True):
+    """One group of tokens through the routed experts: dropless, or with
+    ``dropless=False`` and a ``capacity_factor`` > 0 the capacity path.
 
     x: (T, D) -> (y (T, D), aux_loss f32 scalar)
     """
@@ -85,13 +90,22 @@ def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str):
     pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
     slot = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0].long()           # (T·k,)
 
-    buf = torch.zeros((e, t, d), dtype=x.dtype, device=x.device)
-    buf[flat_e, slot] = x.repeat_interleave(k, dim=0)
+    x_rep = x.repeat_interleave(k, dim=0)                                     # (T·k, D)
+    if dropless or moe.capacity_factor <= 0:
+        buf = torch.zeros((e, t, d), dtype=x.dtype, device=x.device)
+        buf[flat_e, slot] = x_rep
+        y_rep = _expert_ffn(params, buf, activation)[flat_e, slot]          # (T·k, D)
+    else:
+        # the reference's capacity path: pairs past their expert's cap slots
+        # are dropped (zero in, zero out), the rest accumulate as its .add
+        cap = max(1, int(t * k / e * moe.capacity_factor))
+        keep = (slot < cap)[:, None]
+        at = slot.clamp(max=cap - 1)
+        buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+        buf.index_put_((flat_e, at), torch.where(keep, x_rep, 0), accumulate=True)
+        y_rep = torch.where(keep, _expert_ffn(params, buf, activation)[flat_e, at], 0)
 
-    y_buf = _expert_ffn(params, buf, activation)                              # (E, T, D)
-
-    # gather back + combine in the reference's order and dtype
-    y_rep = y_buf[flat_e, slot]                                               # (T·k, D)
+    # combine in the reference's order and dtype
     w = top_p.reshape(t * k, 1).to(y_rep.dtype)
     y = (y_rep * w).reshape(t, k, d).sum(dim=1)
 
@@ -102,21 +116,23 @@ def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str):
     return y, aux
 
 
-def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, num_groups: int = 0):
+def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, num_groups: int = 0,
+              dropless: bool = True):
     """x: (B, S, D) -> (y, aux_loss).  ``num_groups`` > 1 (dividing S) runs
     groups of the sequence axis one after another, each group's dispatch
-    over its B·S/num_groups tokens; aux is the groups' mean."""
+    over its B·S/num_groups tokens; aux is the groups' mean.  ``dropless``
+    as in :func:`moe_group`."""
     m = cfg.moe
     b, s, d = x.shape
     if num_groups <= 1 or s % num_groups:
-        y, aux = moe_group(params, x.reshape(b * s, d), m, cfg.activation)
+        y, aux = moe_group(params, x.reshape(b * s, d), m, cfg.activation, dropless)
         y = y.reshape(b, s, d)
     else:
         sg = s // num_groups
         ys, auxs = [], []
         for gi in range(num_groups):
             yg, auxg = moe_group(params, x[:, gi * sg:(gi + 1) * sg].reshape(b * sg, d),
-                                 m, cfg.activation)
+                                 m, cfg.activation, dropless)
             ys.append(yg.reshape(b, sg, d))
             auxs.append(auxg)
         y = torch.cat(ys, dim=1)

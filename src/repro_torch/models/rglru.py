@@ -11,7 +11,9 @@ RG-LRU (per channel, block-diagonal gates per head):
     h_t = a_t ⊙ h_{t-1} + sqrt(1 − a_t²) ⊙ (i_t ⊙ z_t)
 
 The recurrence h_t = a_t h_{t-1} + b_t runs in the port's ``rglru_scan``
-kernel on a CUDA tensor and in its plain version on a CPU tensor.  The
+kernel on a CUDA tensor and in its plain version on a CPU tensor, through
+``rglru_scan_grad``, whose backward is the same kernel over reversed time
+(training on the card reaches the kernel both ways).  The
 carried state (conv tail + h) is O(1) in sequence length; the restoration
 executor snapshots it at chunk boundaries.
 """
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan import rglru_scan_grad
 from repro_torch.models.layers import _gelu, dense_init
 
 _C = 8.0
@@ -97,7 +99,7 @@ def rglru_full(cfg: ModelConfig, params: dict, x: torch.Tensor,
     z = x @ params["w_x"].to(x.dtype)
     z, conv_tail = causal_conv1d(z, params["conv_w"], params["conv_b"], conv_tail)
     log_a, b_t = _gates(params, z, nh)
-    h, h_last = rglru_scan(log_a.contiguous(), b_t.contiguous(),
-                           h0.float().contiguous())
+    h, h_last = rglru_scan_grad(log_a.contiguous(), b_t.contiguous(),
+                                h0.float().contiguous())
     out = (y * h.to(x.dtype)) @ params["w_out"].to(x.dtype)
     return out, conv_tail, h_last

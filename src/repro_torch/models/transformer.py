@@ -1,10 +1,13 @@
 """Per-layer blocks (pre-norm residual) shared by the stack in ``model.py``.
 
 Counterpart of ``repro.models.transformer`` for attention (GQA or MLA),
-RG-LRU and RWKV-6 layers, each with a dense or MoE FFN.  Restoration
-recompute steps and single-token decode are the same path with C = chunk
-or C = 1; a recurrent layer carries its state (conv tail, h) from one
-chunk to the next, an RWKV layer its token shifts and wkv matrix.
+RG-LRU and RWKV-6 layers, each with a dense or MoE FFN.
+``attention_layer_full`` is the whole-sequence attention layer (training,
+``Model.forward``, ``prefill``); restoration recompute steps and
+single-token decode are the same path with C = chunk or C = 1
+(``attention_layer_cached``).  A recurrent layer carries its state (conv
+tail, h) from one chunk to the next, an RWKV layer its token shifts and
+wkv matrix; their ``*_full`` blocks serve both paths.
 """
 from __future__ import annotations
 
@@ -45,12 +48,30 @@ def init_layer(cfg: ModelConfig, layer_idx: int, dtype,
     return p
 
 
-def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor):
+def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, dropless: bool = True):
     """(y, aux): the MoE's load-balancing loss (an f32 tensor), or 0.0 for a
     dense FFN (no device op for a loss nothing reads)."""
     if "moe" in p:
-        return moe_mod.apply_moe(p["moe"], h, cfg)
+        return moe_mod.apply_moe(p["moe"], h, cfg, dropless=dropless)
     return apply_mlp(p["mlp"], h, cfg.activation), 0.0
+
+
+def attention_layer_full(cfg: ModelConfig, p: dict, x, positions, *,
+                         dropless: bool = True):
+    """Whole-sequence attention layer (MHA/GQA or MLA) with its dense or MoE
+    FFN; positions (B, S) on x's device.  Returns (x', cache entry for the
+    whole sequence — {"k", "v"} or {"ckv"} —, aux)."""
+    h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    if cfg.mla is not None:
+        a, ckv = mla_mod.mla_full(cfg, p["attn"], h, positions)
+        entry = {"ckv": ckv}
+    else:
+        a, (k, v) = attn.attention_full(cfg, p["attn"], h, positions)
+        entry = {"k": k, "v": v}
+    x = x + a
+    h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+    f, aux = _ffn(cfg, p, h, dropless)
+    return x + f, entry, aux
 
 
 def attention_layer_cached(cfg: ModelConfig, p: dict, x, positions,
