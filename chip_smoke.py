@@ -69,10 +69,17 @@ layers (which launches ``rglru_scan`` both ways), each against the CPU,
 every parameter's gradient finite and non-zero; 100 steps of full-width
 qwen1.5-0.5b through ``launch.train.run`` (ms a step, tokens/s, peak
 memory) and the reduced model's loss falling at the reference test's
-setting; a restart from a manifest after an injected failure; and the
-refusal of a CUDA RWKV forward under gradients.  The second-to-last line of
-stdout is a ``{"kernels": [...]}`` summary; the last line is the ok/device
-record.  Any failure raises (exit code != 0).  Imports nothing of JAX or
+setting; a restart from a manifest after an injected failure; wkv6's
+backward kernel against its plain version and autograd of the plain scan,
+both in f64, at S = 1-256 (bit for bit across two calls); one step of
+full-width rwkv6-7b cut to two layers against the CPU (which launches wkv6
+forward and backward); and the reduced rwkv6-7b through ``launch.train.run``
+with its loss falling.  After the dense phase, append-buffer decode
+(``Model.decode_step_append``) on full-width qwen3-8b over a 2048-token
+prefix against ``decode_step`` on the same tokens; in the family phase,
+qwen3-30b-a3b's ``moe_groups`` and einsum-dispatch checks.  The
+second-to-last line of stdout is a ``{"kernels": [...]}`` summary; the last
+line is the ok/device record.  Any failure raises (exit code != 0).  Imports nothing of JAX or
 ``repro``.
 """
 from __future__ import annotations
@@ -134,6 +141,12 @@ WKV6_S_TOL = 0.0
 # form and the f32 sequential scan both land 1e-7 to 7e-7 from f64
 # (tests/test_torch_wkv6.py), and the bound is about three times that.
 WKV6_F64_TOL = 1e-6
+# wkv6's backward kernel (f32) against wkv6_backward_plain run in float64, and
+# against autograd of wkv6_plain run in float64, both on the card: max |kernel
+# - f64| / max |f64| for each of the six gradients.  On the CPU the f32 plain
+# backward lands up to 5.6e-7 from f64 at S <= 256
+# (tests/test_torch_wkv6_backward.py); the bound is about three times that.
+WKV6_BWD_TOL = 2e-6
 
 
 def card_line() -> str:
@@ -1651,7 +1664,8 @@ def counters():
             "rglru_scan": (rglru_scan, "launches"),
             "rglru_scan_step": (rglru_scan, "step_launches"),
             "rglru_scan_reverse": (rglru_scan, "reverse_launches"),
-            "wkv6": (wkv6, "launches"), "wkv6_step": (wkv6, "step_launches")}
+            "wkv6": (wkv6, "launches"), "wkv6_step": (wkv6, "step_launches"),
+            "wkv6_backward": (wkv6, "backward_launches")}
 
 
 def zero_counters():
@@ -1671,7 +1685,8 @@ def read_counters() -> dict:
     form alone (the datapath's promotions), and ``kv_dequantize_chunk`` the
     one-chunk form (``ChunkStore._decode_device``).  ``rglru_scan_reverse``
     counts the calls over reversed time that its gradient Function's
-    backward makes (among both kernels' counts)."""
+    backward makes (among both kernels' counts); ``wkv6_backward`` the
+    calls of wkv6's backward kernel (apart from ``wkv6``'s)."""
     out = {n: getattr(w, attr) for n, (w, attr) in counters().items()}
     out["kv_dequantize_chunk"] = out["kv_dequantize"] - out["kv_dequantize_run"]
     out["wkv6"] -= out["wkv6_step"]
@@ -2453,6 +2468,111 @@ def dense_phase(dev, card: str) -> dict:
 # family phase: deepseek-v2-236b's 471 GB of bf16 weights at full depth
 # cannot fit one card, so it runs at full width cut to 4 of its 60 layers
 # (the dense first layer and 3 MoE layers)
+# Append-buffer decode on full-width qwen3-8b: a PREFIX-token prefix built by
+# prefill_chunk in CHUNK-token chunks, then STEPS steps of decode_step_append
+# into a tail of WINDOW slots, against decode_step writing the same tokens
+# into the prefix cache grown by WINDOW slots.  Both attend through
+# flash_decode over the same 2064 slots in the same order with the same kpos,
+# so the logits should agree to the bit; the bound is one bf16 step of the
+# largest logit (2^-8 of it).
+APPEND = dict(arch="qwen3-8b", B=2, PREFIX=2048, WINDOW=16, STEPS=16, CHUNK=256)
+APPEND_TOL = 2.0 ** -8
+
+
+def append_decode_phase(dev, card: str) -> dict:
+    """``Model.decode_step_append`` at full width (APPEND), bf16 random weights
+    from seed 0: every step's logits against ``decode_step``'s on the same
+    fed tokens (APPEND_TOL of the largest logit) and the greedy tokens
+    equal; flash_decode launched once a layer a step (counters from 0
+    just before the appended steps, read just after) and nothing else; ms a
+    step (host clock ended by a synchronise) beside decode_step's; the prefix
+    cache untouched.  flash_decode at the append shape (one layer's [cache ||
+    tail]) is timed for the kernels line.  One ``{"append_decode": ...}``
+    line."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from repro_torch.models import Model
+    from repro_torch.models.kvcache import grow_cache
+
+    cfg = get_config(APPEND["arch"])
+    bsz, pre, wdw, n, ch = (APPEND[x] for x in ("B", "PREFIX", "WINDOW", "STEPS", "CHUNK"))
+    model = Model(cfg, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (bsz, pre),
+                           generator=torch.Generator().manual_seed(4))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        cache = model.init_cache(bsz, pre)
+        for c0 in range(0, pre, ch):
+            last, cache = model.prefill_chunk(params, tokens[:, c0:c0 + ch], cache, c0)
+        before = {f: t.clone() for f, t in cache.items()}
+        grown = grow_cache(cfg, {f: t.clone() for f, t in cache.items()}, pre + wdw)
+        tail = model.init_tail(bsz, wdw)
+        fed, app_logits, app_ms = [last.argmax(-1)], [], []
+        zero_counters()
+        for i in range(n):
+            (lg, tail), ms = timed(lambda: model.decode_step_append(params, fed[-1], cache,
+                                                                    tail, i, pre + i))
+            app_logits.append(lg.float())
+            app_ms.append(ms)
+            fed.append(lg.argmax(-1))
+        launches = read_counters()
+        dec_ms, err, biggest, equal = [], 0.0, 0.0, []
+        for i in range(n):
+            (lg, grown), ms = timed(lambda: model.decode_step(params, fed[i], grown, pre + i))
+            dec_ms.append(ms)
+            err = max(err, float((lg.float() - app_logits[i]).abs().max()))
+            biggest = max(biggest, float(lg.float().abs().max()))
+            equal.append(bool(torch.equal(lg.argmax(-1), fed[i + 1])))
+        untouched = all(torch.equal(cache[f], before[f]) for f in before)
+        # flash_decode at the append shape: layer 0's [cache || tail] after the steps
+        q = torch.randn(bsz, cfg.num_heads, cfg.head_dim, generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev).to(torch.bfloat16)
+        k = torch.cat([cache["k"][0], tail["k"][0]], dim=1)
+        v = torch.cat([cache["v"][0], tail["v"][0]], dim=1)
+        kp = torch.cat([cache["kpos"][0], tail["kpos"][0]])
+        scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+        kw = dict(scale=cfg.head_dim ** -0.5, window=0)
+        q_pos = pre + n - 1
+        kerr = float((flash_decode(q, k, v, kp, q_pos, **kw).float()
+                      - flash_decode_plain(q, k, v, kp, q_pos, **kw).float()).abs().max())
+        kt = decode_timing(q, k, v, kp, q_pos, 0, scratch.zero_,
+                           torch.cuda.get_device_properties(dev).multi_processor_count)
+    tol = APPEND_TOL * biggest
+    out = dict(card=card, arch=cfg.name, layers=cfg.num_layers, B=bsz, prefix=pre,
+               window=wdw, steps=n, prefill_chunk=ch, max_abs_logit_diff=err,
+               max_abs_logit=biggest, tol=tol, greedy_equal=all(equal),
+               greedy_equal_by_step=equal, prefix_cache_untouched=untouched,
+               append_ms_median=statistics.median(app_ms[2:]),
+               decode_step_ms_median=statistics.median(dec_ms[2:]),
+               append_ms=app_ms, decode_step_ms=dec_ms,
+               launches={k_: v_ for k_, v_ in launches.items() if v_},
+               flash_decode_append=dict(max_abs_err=kerr, **kt, shape=(
+                   f"q ({bsz},{cfg.num_heads},{cfg.head_dim}) bf16, k/v ({bsz},{pre + wdw},"
+                   f"{cfg.num_kv_heads},{cfg.head_dim}) bf16: [cache || tail] at step {n}")))
+    print(json.dumps({"append_decode": out}))
+    del model, params, cache, grown, tail
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {"flash_decode": cfg.num_layers * n}
+    got = {k_: v_ for k_, v_ in launches.items() if v_}
+    if not (err <= tol and all(equal) and untouched and got == want
+            and kerr <= DECODE_TOL):
+        raise AssertionError(f"append-buffer decode on the card: {out}; launches {got}, "
+                             f"want {want}")
+    return out
+
+
 FAMILY_SERVES = (
     ("qwen3-30b-a3b", None, True, (512, 1536, 2560, 4096)),
     ("deepseek-moe-16b", None, False, (512, 1536, 2560, 4096)),
@@ -2516,6 +2636,92 @@ def moe_row_invariance(model, params, dev, m: int = 512, c: int = 256) -> dict:
     return out
 
 
+# Model(moe_groups=...) and the einsum dispatch on qwen3-30b-a3b (bf16), at
+# the first MoE layer on one random 512-row input and on a 512-token
+# prefill_chunk.  Groups of 128 rows against all 512 change only the row
+# counts of the router's f32 product and of the expert products (the routing
+# of a row does not depend on its group): the router logits within
+# MOE_ROUTER_TOL of their largest value (PR 24 measured 1-2e-6 between 512
+# and 256 rows), the layer's output within MOE_LAYER_TOL of its largest
+# value (two bf16 steps: the expert products' rounding and the combine's);
+# the model's last logits after 48 layers within MOE_LOGIT_TOL (a bf16
+# residual stream carries such a difference through every layer).  The
+# einsum dispatch contracts one-hot tensors (the combine's sum over top-k in
+# f32 inside the product) where the scatter form rounds each weighted product
+# to bf16 before the sum, so the two differ by those roundings: each is held
+# to the same group run in f32 (weights and input upcast exactly, so the
+# routing is the same), and the einsum form's error may not exceed the
+# scatter form's, or one bf16 step (2^-8) of the largest output; aux within
+# 1e-6 relative.
+MOE_GROUPS = 4
+MOE_ROUTER_TOL = 1e-5
+MOE_LAYER_TOL = 2.0 ** -7
+MOE_LOGIT_TOL = 5e-2
+
+
+def moe_option_checks(model, params, dev, m: int = 512) -> dict:
+    """``moe_groups`` MOE_GROUPS against 1, and ``DISPATCH = "einsum"``
+    against ``"scatter"`` on the capacity path (``moe_group`` with
+    ``dropless=False`` at the config's capacity factor), as the constants
+    above say."""
+    import torch
+    from repro_torch.models import moe
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+
+    cfg = model.cfg
+    p = next(layer["moe"] for layer in params["layers"] if "moe" in layer)
+    a = torch.randn(1, m, cfg.d_model, generator=torch.Generator(device=dev).manual_seed(7),
+                    device=dev).to(torch.bfloat16)
+    sg = m // MOE_GROUPS
+    with torch.no_grad():
+        router = a[0].float() @ p["router"]
+        router_g = torch.cat([a[0, i * sg:(i + 1) * sg].float() @ p["router"]
+                              for i in range(MOE_GROUPS)])
+        y1, _ = moe.apply_moe(p, a, cfg, num_groups=1)
+        yg, _ = moe.apply_moe(p, a, cfg, num_groups=MOE_GROUPS)
+        toks = torch.randint(0, cfg.vocab_size, (1, m), generator=torch.Generator().manual_seed(8))
+        last = {}
+        for groups in (1, MOE_GROUPS):
+            model.moe_groups = groups
+            last[groups], _ = model.prefill_chunk(params, toks, model.init_cache(1, m), 0)
+        model.moe_groups = 0
+        ys = {}
+        try:
+            for dispatch in ("scatter", "einsum"):
+                moe.DISPATCH = dispatch
+                ys[dispatch] = moe.moe_group(p, a[0], cfg.moe, cfg.activation, dropless=False)
+        finally:
+            moe.DISPATCH = "scatter"
+        p32 = {n: w.float() for n, w in p.items() if n != "shared"}
+        y32, _ = moe.moe_group(p32, a[0].float(), cfg.moe, cfg.activation, dropless=False)
+        del p32
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    out = dict(groups=MOE_GROUPS, rows=m,
+               router_rel_diff=rel(router_g, router), router_tol=MOE_ROUTER_TOL,
+               router_top_k_equal=bool(torch.equal(torch.topk(router_g, k).indices.sort().values,
+                                                   torch.topk(router, k).indices.sort().values)),
+               layer_rel_diff=rel(yg, y1), layer_tol=MOE_LAYER_TOL,
+               prefill_logit_rel_diff=rel(last[MOE_GROUPS], last[1]), logit_tol=MOE_LOGIT_TOL,
+               prefill_logits_equal=bool(torch.equal(last[MOE_GROUPS], last[1])),
+               prefill_greedy_equal=bool(torch.equal(last[MOE_GROUPS].argmax(-1),
+                                                     last[1].argmax(-1))),
+               capacity=max(1, int(m * k / e * cfg.moe.capacity_factor)),
+               einsum_rel_diff=rel(ys["einsum"][0], ys["scatter"][0]),
+               einsum_rel_err_f32=rel(ys["einsum"][0], y32),
+               scatter_rel_err_f32=rel(ys["scatter"][0], y32),
+               einsum_aux=float(ys["einsum"][1]), scatter_aux=float(ys["scatter"][1]))
+    ok = (out["router_rel_diff"] <= MOE_ROUTER_TOL and out["layer_rel_diff"] <= MOE_LAYER_TOL
+          and out["prefill_logit_rel_diff"] <= MOE_LOGIT_TOL
+          and out["einsum_rel_err_f32"] <= max(out["scatter_rel_err_f32"], 2.0 ** -8)
+          and abs(out["einsum_aux"] - out["scatter_aux"]) <= 1e-6 * abs(out["scatter_aux"]))
+    print(json.dumps({"moe_options": out}))
+    if not ok:
+        raise AssertionError(f"moe_groups / einsum dispatch on the card: {out}")
+    return out
+
+
 def family_phase(dev, card: str, profile: bool = False) -> dict:
     """One real serve of each MoE, MLA and embedding-input config
     (``FAMILY_SERVES``): bf16, random weights from seed 0, verify on, the
@@ -2528,7 +2734,8 @@ def family_phase(dev, card: str, profile: bool = False) -> dict:
     serve's absorbed attention is plain products, as in the reference: only
     the store kernels), and hold its greedy tokens across two unquantized
     serves, and their first-token logits by torch.equal.
-    The MoE configs print their ``moe_row_invariance``.  With ``profile``,
+    The MoE configs print their ``moe_row_invariance``; qwen3-30b-a3b its
+    ``moe_option_checks`` (moe_groups, the einsum dispatch).  With ``profile``,
     one more qwen3-30b-a3b serve is traced: device time by kernel, and in
     the MoE ranges.  One ``{"family_serve": ...}`` line each."""
     import dataclasses
@@ -2549,6 +2756,7 @@ def family_phase(dev, card: str, profile: bool = False) -> dict:
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         rows = moe_row_invariance(model, params, dev) if cfg.moe is not None else None
+        options = moe_option_checks(model, params, dev) if arch == "qwen3-30b-a3b" else None
 
         def serve(quant):
             store = (None if quant is None else
@@ -2610,7 +2818,7 @@ def family_phase(dev, card: str, profile: bool = False) -> dict:
             verified=sorted(r for r, e in errs.items() if e), strategies=strategies,
             tokens_stable=diff is None, tokens_first_difference=diff,
             first_logits_stable=logits_stable, tokens={r: t[:6] for r, t in tokens.items()},
-            row_invariance_512_vs_256=rows,
+            row_invariance_512_vs_256=rows, moe_options=options,
             launches={k: v for k, v in launches.items() if v})
         print(json.dumps({"family_serve": out}))
         results[arch] = dict(out, launches=launches, profile=prof)
@@ -2705,6 +2913,8 @@ TRAIN_CLI_STEPS = 100        # full width: B 8, S 128
 # full-width loss rise over 100 steps (PERF.md).
 TRAIN_CLI_LR = 3e-4
 HYBRID_TRAIN = dict(B=2, S=64, layers=3)   # recurrentgemma-2b cut to (rec, rec, attn)
+RWKV_TRAIN = dict(B=2, S=64, layers=2)     # rwkv6-7b at full width cut to 2 layers
+RWKV_CLI_STEPS = 25                        # the reduced rwkv6-7b through launch.train
 
 
 def rglru_backward_check(dev, card: str) -> dict:
@@ -2785,11 +2995,12 @@ def grad_report(grads) -> dict:
     return dict(leaves=len(leaves), bad_leaves=bad)
 
 
-def card_vs_cpu_step(cfg, dev, card: str, bsz: int, s: int, count_rglru: bool) -> dict:
+def card_vs_cpu_step(cfg, dev, card: str, bsz: int, s: int, must_launch=()) -> dict:
     """One training step's loss, grad_norm and gradients of ``cfg`` (f32,
     remat "dots"), weights from Model.init on the CPU copied to the card,
     the batch from ``batch_at`` on the CPU: card against CPU.  The card's
-    step runs between zero_counters and read_counters."""
+    step runs between zero_counters and read_counters, and each counter in
+    ``must_launch`` must read more than 0."""
     import torch
     from repro_torch.models import build_model
     from repro_torch.models.model import _leaves
@@ -2826,8 +3037,7 @@ def card_vs_cpu_step(cfg, dev, card: str, bsz: int, s: int, count_rglru: bool) -
     ok = (abs(out["loss_card"] - out["loss_cpu"]) <= STEP_LOSS_TOL * abs(out["loss_cpu"])
           and abs(cn - hn) <= STEP_NORM_TOL * hn and leaf_err <= STEP_LEAF_TOL
           and not out["grads"]["bad_leaves"])
-    if count_rglru:
-        ok = ok and launches["rglru_scan"] > 0 and launches["rglru_scan_reverse"] > 0
+    ok = ok and all(launches[n] > 0 for n in must_launch)
     if not ok:
         raise AssertionError(f"train step on the card against the CPU: {out}")
     return out
@@ -2949,33 +3159,151 @@ def train_restart_check(dev, card: str) -> dict:
     return out
 
 
-def rwkv_refusal_check(dev, card: str) -> dict:
-    """(f) A grad-enabled forward of the reduced rwkv6-7b on the card raises
-    NO_BACKWARD, and so does ``launch.train.run`` on an RWKV arch."""
+def wkv6_backward_check(dev, card: str) -> dict:
+    """(f) wkv6's backward kernel at 64 heads of 64, B 2, s0 != 0, at S = 1,
+    16, 37 (a ragged last chunk of its 8-step chunks), 40, 64 and 256, at
+    the model's decays
+    (exp(-exp(N(-6, 1)))), strong decay (N(0, 1)) and decays with every 7th
+    entry 0 (N(-1, 1)), with ds_last zero (None) and drawn: each gradient
+    against wkv6_backward_plain in f64 and against autograd of wkv6_plain in
+    f64 (WKV6_BWD_TOL of its largest value), two calls equal bit for bit,
+    one launch a call.  The same at 4 heads of 32 (the reduced config's
+    head size, which the reduced training run takes) at S = 1, 37 and 64,
+    where the forward kernels are also held to the plain version (the
+    chunked kernel within WKV6_F64_TOL of f64, the one-step kernel's y within
+    WKV6_Y_TOL and s_last bit for bit).  Then the call at the RWKV train
+    shape (B 2, S 64, ds_last None, as in training), timed beside the plain
+    version, for the kernels line."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.rwkv6_scan import NO_BACKWARD
-    from repro_torch.launch import train as train_cli
-    from repro_torch.models import build_model
-    from repro_torch.models.model import _leaves
+    from repro_torch.kernels.rwkv6_scan import (wkv6, wkv6_backward, wkv6_backward_plain,
+                                                wkv6_plain)
 
-    cfg = get_config("rwkv6-7b").reduced()
-    m = build_model(cfg, device=dev)
-    params = m.init(torch.Generator(dev).manual_seed(0))
-    for p in _leaves(params):
-        p.requires_grad_(True)
-    msgs = []
-    for attempt in (lambda: m.forward(params, torch.zeros(1, 8, dtype=torch.long)),
-                    lambda: train_cli.run("rwkv6-7b", reduced=True, steps=1, device=dev)):
-        try:
-            attempt()
-            msgs.append(None)
-        except RuntimeError as e:
-            msgs.append(str(e))
-    out = dict(card=card, forward_raised=msgs[0], run_raised=msgs[1])
-    print(json.dumps({"train_rwkv_refusal": out}))
-    if not (msgs[0] == NO_BACKWARD and msgs[1] is not None and NO_BACKWARD in msgs[1]):
-        raise AssertionError(f"RWKV under gradients on the card: {out}")
+    bsz = 2
+    g = torch.Generator(device=dev).manual_seed(26)
+    names = ("r", "k", "v", "w", "u", "s0")
+
+    def draw(sl, decay, h=64, dh=64):
+        r, k, v, dy = (torch.randn(bsz, sl, h, dh, generator=g, device=dev) for _ in range(4))
+        mu = {"model": -6.0, "strong": 0.0, "zeros": -1.0}[decay]
+        w = torch.exp(-torch.exp(torch.randn(bsz, sl, h, dh, generator=g, device=dev) + mu))
+        if decay == "zeros":
+            w.view(-1)[::7] = 0.0
+        u = 0.1 * torch.randn(h, dh, generator=g, device=dev)
+        s0, ds = (torch.randn(bsz, h, dh, dh, generator=g, device=dev) for _ in range(2))
+        return r, k, v, w, u, s0, dy, ds
+
+    def rels(got, want):
+        return {n: float((a.double() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for n, a, b in zip(names, got, want)}
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / float(b.abs().max())
+
+    cases = []
+    for (h, dh), sl in itertools.chain(itertools.product([(64, 64)], (1, 16, 37, 40, 64, 256)),
+                                       itertools.product([(4, 32)], (1, 37, 64))):
+        for decay in ("model", "strong", "zeros"):
+            r, k, v, w, u, s0, dy, drawn = draw(sl, decay, h, dh)
+            fwd = {}
+            if dh == 32:
+                y, last = wkv6(r, k, v, w, u, s0)
+                if sl == 1:
+                    yp, lastp = wkv6_plain(r, k, v, w, u, s0)
+                    fwd = dict(y_rel_err_plain=rel(y, yp), s_last_bit_exact=torch.equal(last, lastp))
+                    fwd_ok = fwd["y_rel_err_plain"] <= WKV6_Y_TOL and fwd["s_last_bit_exact"]
+                else:
+                    y64, last64 = wkv6_plain(r, k, v, w, u, s0, dtype=torch.float64)
+                    fwd = dict(y_rel_err_f64=rel(y, y64), s_last_rel_err_f64=rel(last, last64))
+                    fwd_ok = max(fwd.values()) <= WKV6_F64_TOL
+                if not fwd_ok:
+                    raise AssertionError(f"wkv6 forward at head size 32, S {sl}: {fwd}")
+            for ds in (None, drawn):
+                zero_counters()
+                got = wkv6_backward(r, k, v, w, u, s0, dy, ds)
+                again = wkv6_backward(r, k, v, w, u, s0, dy, ds)
+                torch.cuda.synchronize()
+                launches = read_counters()["wkv6_backward"]
+                p64 = wkv6_backward_plain(r, k, v, w, u, s0, dy, ds, dtype=torch.float64)
+                ins = [t.double().requires_grad_(True) for t in (r, k, v, w, u, s0)]
+                y, last = wkv6_plain(*ins, dtype=torch.float64)
+                outs, gr = ((y,), (dy.double(),)) if ds is None else \
+                    ((y, last), (dy.double(), ds.double()))
+                ag = [torch.zeros_like(t) if x is None else x for t, x in zip(
+                    ins, torch.autograd.grad(outs, ins, gr, allow_unused=True))]
+                case = dict(H=h, Dh=dh, S=sl, decay=decay, ds_last=ds is not None, forward=fwd,
+                            zeros_in_w=int((w == 0).sum()), launches=launches,
+                            bit_exact_two_calls=all(torch.equal(a, b) for a, b in zip(got, again)),
+                            finite=all(bool(torch.isfinite(x).all()) for x in got),
+                            rel_err_vs_plain_f64=rels(got, p64),
+                            rel_err_vs_autograd_f64=rels(got, ag),
+                            plain_f64_vs_autograd=max(rels(p64, ag).values()),
+                            max_abs_err=max(float((a.double() - b).abs().max())
+                                            for a, b in zip(got, p64)))
+                cases.append(case)
+                ok = (case["bit_exact_two_calls"] and case["finite"] and launches == 2
+                      and max(case["rel_err_vs_plain_f64"].values()) <= WKV6_BWD_TOL
+                      and max(case["rel_err_vs_autograd_f64"].values()) <= WKV6_BWD_TOL)
+                if not ok:
+                    raise AssertionError(f"wkv6 backward kernel: {case}")
+                del p64, ag, ins, y, last
+    # the call a train step makes (s_last unused: ds_last None)
+    h, dh, sl = 64, 64, RWKV_TRAIN["S"]
+    r, k, v, w, u, s0, dy, _ = draw(sl, "model")
+    s0 = torch.zeros_like(s0)
+    got = wkv6_backward(r, k, v, w, u, s0, dy)
+    scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
+
+    def flush():
+        scratch.zero_()
+
+    def call():
+        return wkv6_backward(r, k, v, w, u, s0, dy)
+    # per state element a step: the state rebuilt (3), the four products
+    # and their sums (8) and G's update (3)
+    bms, by = bound(nbytes(r, k, v, w, u, s0, dy, *got), 14 * bsz * sl * h * dh * dh,
+                    F32_FLOP_PER_S)
+    out = dict(card=card, cases=cases, tol=WKV6_BWD_TOL,
+               max_abs_err=max(c["max_abs_err"] for c in cases),
+               max_rel_err=max(max(c["rel_err_vs_plain_f64"].values()) for c in cases),
+               max_rel_err_vs_autograd=max(max(c["rel_err_vs_autograd_f64"].values())
+                                           for c in cases),
+               ms=time_ms(call, flush=flush),
+               kernels_us=kernels_us(call, flush, match="wkv6_bwd"),
+               kernels_us_warm=kernels_us(call, match="wkv6_bwd"),
+               plain_ms=time_ms(lambda: wkv6_backward_plain(r, k, v, w, u, s0, dy),
+                                flush=flush, iters=7),
+               bound_ms=bms, bound_by=by, library_ms=None,
+               shape=f"r, k, v, w, dy ({bsz},{sl},{h},{dh}) f32, u ({h},{dh}), "
+                     f"s0 ({bsz},{h},{dh},{dh}), ds_last None")
+    print(json.dumps({"train_wkv6_backward": out}))
+    return out
+
+
+def rwkv_cli_check(dev, card: str) -> dict:
+    """(h) ``launch.train.run`` on the reduced rwkv6-7b (2 heads of 64) for
+    RWKV_CLI_STEPS steps at the CLI's defaults (B 8, S 64, peak lr 3e-3):
+    every loss finite, the mean of the last five below the first five's,
+    and wkv6's backward kernel launched every step."""
+    import statistics
+
+    from repro_torch.launch import train as train_cli
+    zero_counters()
+    res = train_cli.run("rwkv6-7b", reduced=True, steps=RWKV_CLI_STEPS, log_every=5,
+                        device=dev)
+    launches = read_counters()
+    losses = [res.losses[i] for i in range(RWKV_CLI_STEPS)]
+    out = dict(card=card, arch="rwkv6-7b reduced", steps=RWKV_CLI_STEPS, B=8, S=64,
+               loss_first=losses[0], loss_last=losses[-1],
+               mean_first5=statistics.fmean(losses[:5]), mean_last5=statistics.fmean(losses[-5:]),
+               all_finite=all(math.isfinite(x) for x in losses),
+               step_ms_median=statistics.median(res.step_seconds[i] * 1e3
+                                                for i in range(2, RWKV_CLI_STEPS)),
+               peak_gb=res.peak_bytes / 1e9,
+               launches={k: v for k, v in launches.items() if v})
+    print(json.dumps({"train_rwkv_cli": out}))
+    if not (out["all_finite"] and out["mean_last5"] < out["mean_first5"]
+            and launches["wkv6_backward"] >= RWKV_CLI_STEPS):
+        raise AssertionError(f"reduced rwkv6-7b through launch.train on the card: {out}")
     return out
 
 
@@ -2984,8 +3312,10 @@ def train_phase(dev, card: str) -> dict:
     one full-width qwen1.5-0.5b step against the CPU, (c) a 3-layer
     full-width recurrentgemma-2b step against the CPU (the hybrid's train
     path, which launches rglru_scan both ways), (d) launch.train at full
-    width and the reduced model's loss, (e) restart from a manifest, (f) the
-    RWKV refusal."""
+    width and the reduced model's loss, (e) restart from a manifest, (f)
+    wkv6's backward kernel, (g) a 2-layer full-width rwkv6-7b step against
+    the CPU (wkv6 forward, with remat's recomputation, and backward), (h)
+    the reduced rwkv6-7b through launch.train."""
     import dataclasses
 
     import torch
@@ -2993,14 +3323,14 @@ def train_phase(dev, card: str) -> dict:
 
     t0 = time.perf_counter()
     res = {"rglru_backward": rglru_backward_check(dev, card)}
-    res["qwen_step"] = card_vs_cpu_step(get_config(TRAIN_ARCH), dev, card, 2, 64, False)
+    res["qwen_step"] = card_vs_cpu_step(get_config(TRAIN_ARCH), dev, card, 2, 64)
     print(json.dumps({"train_step": res["qwen_step"]}))
     gc.collect()
     torch.cuda.empty_cache()
     hyb = dataclasses.replace(get_config("recurrentgemma-2b"), num_layers=HYBRID_TRAIN["layers"])
     assert hyb.layer_kinds() == ("recurrent", "recurrent", "attention")
     res["hybrid_step"] = card_vs_cpu_step(hyb, dev, card, HYBRID_TRAIN["B"], HYBRID_TRAIN["S"],
-                                          True)
+                                          ("rglru_scan", "rglru_scan_reverse"))
     print(json.dumps({"train_step": res["hybrid_step"]}))
     gc.collect()
     torch.cuda.empty_cache()
@@ -3008,7 +3338,21 @@ def train_phase(dev, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     res["restart"] = train_restart_check(dev, card)
-    res["rwkv_refusal"] = rwkv_refusal_check(dev, card)
+    res["wkv6_backward"] = wkv6_backward_check(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv = dataclasses.replace(get_config("rwkv6-7b"), num_layers=RWKV_TRAIN["layers"])
+    res["rwkv_step"] = card_vs_cpu_step(rwkv, dev, card, RWKV_TRAIN["B"], RWKV_TRAIN["S"],
+                                        ("wkv6", "wkv6_backward"))
+    print(json.dumps({"train_step": res["rwkv_step"]}))
+    counts = res["rwkv_step"]["launches"]
+    # remat "dots" runs each layer's forward again in the backward pass
+    if (counts.get("wkv6"), counts.get("wkv6_backward")) != (2 * rwkv.num_layers,
+                                                            rwkv.num_layers):
+        raise AssertionError(f"rwkv6-7b train step: wkv6 launches {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["rwkv_cli"] = rwkv_cli_check(dev, card)
     print(json.dumps({"train_phase_s": time.perf_counter() - t0}))
     return res
 
@@ -3042,7 +3386,7 @@ def main(argv=None) -> int:
                          "chunk through its public call (runs on older trees too)")
     ap.add_argument("--train-only", action="store_true",
                     help="build, then run the train phase alone (its kernels line "
-                         "holds rglru_scan's reversed call only)")
+                         "holds rglru_scan's reversed call and wkv6's backward only)")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)   # lines survive a kill
 
@@ -3075,13 +3419,13 @@ def main(argv=None) -> int:
         promote_profile(dev, card)
         return 0
     if args.train_only:
-        print(json.dumps({"kernels": [train_row(train_phase(dev, card))]}))
+        print(json.dumps({"kernels": train_rows(train_phase(dev, card))}))
         return finish(spills)
 
     t0 = time.perf_counter()
     kres = kernel_phase(dev, card)
     print(json.dumps({"kernel_phase_s": time.perf_counter() - t0}))
-    sres = hres = rres = dres = fres = tres = None
+    sres = hres = rres = dres = ares = fres = tres = None
     if args.decode_sweep:
         decode_sweep(dev)
     if args.prefill_sweep:
@@ -3106,6 +3450,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         dres = dense_phase(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ares = append_decode_phase(dev, card)
         t0 = time.perf_counter()
         fres = family_phase(dev, card, args.profile)
         print(json.dumps({"family_phase_s": time.perf_counter() - t0}))
@@ -3169,8 +3516,17 @@ def main(argv=None) -> int:
                                           "rows_a_thread", "rounding_ratio") if x in k}})
         if name == "rglru_scan" and served:
             rows[-1]["launches_by_S"] = served["rglru_scan_launches_by_S"]
+    if ares is not None:
+        k = ares["flash_decode_append"]
+        rows.append({"name": "flash_decode_append", "route": "cuda", "source": fd[0],
+                     "replaces": fd[1], "launches": ares["launches"]["flash_decode"],
+                     "path": f"append decode {ares['arch']}",
+                     **{x: k[x] for x in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms", "kernels_us",
+                                          "kernels_us_warm", "n_split")},
+                     "bound_share": k["bound_ms"] / k["ms"]})
     if tres is not None:
-        rows.append(train_row(tres))
+        rows += train_rows(tres)
     # own µs that no trace read: named, not left to pass as empty
     print(json.dumps({"kernels_us_missing": sorted(
         f"{name}.{key}" for name, k in kres.items() if isinstance(k, dict)
@@ -3179,25 +3535,35 @@ def main(argv=None) -> int:
     return finish(spills)
 
 
-def train_row(tres: dict) -> dict:
-    """The kernels line's entry for rglru_scan's call over reversed time (the
-    backward of its gradient Function): timed at the hybrid's train shape,
-    launches from the hybrid's train step."""
+def train_rows(tres: dict) -> list:
+    """The kernels line's entries of the train phase: rglru_scan's call over
+    reversed time (the backward of its gradient Function), timed at the
+    hybrid's train shape, launches from the hybrid's train step; and wkv6's
+    backward kernel, timed at the RWKV train shape, launches from the
+    2-layer rwkv6-7b train step."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "kernels_us", "kernels_us_warm")
     k = tres["rglru_backward"]
-    return {"name": "rglru_scan_reverse", "route": "cuda",
-            "source": "src/repro_torch/csrc/rglru_scan.cu",
-            "replaces": "src/repro/kernels/rglru_scan/kernel.py:49",
-            "launches": tres["hybrid_step"]["launches"].get("rglru_scan_reverse", 0),
-            "path": "train " + tres["hybrid_step"]["arch"],
-            **{x: k[x] for x in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "kernels_us", "kernels_us_warm", "plan")},
-            "bound_share": k["bound_ms"] / k["ms"]}
+    b = tres["wkv6_backward"]
+    return [{"name": "rglru_scan_reverse", "route": "cuda",
+             "source": "src/repro_torch/csrc/rglru_scan.cu",
+             "replaces": "src/repro/kernels/rglru_scan/kernel.py:49",
+             "launches": tres["hybrid_step"]["launches"].get("rglru_scan_reverse", 0),
+             "path": "train " + tres["hybrid_step"]["arch"],
+             **{x: k[x] for x in keys + ("plan",)}, "bound_share": k["bound_ms"] / k["ms"]},
+            {"name": "wkv6_backward", "route": "cuda",
+             "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+             "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:56",
+             "launches": tres["rwkv_step"]["launches"].get("wkv6_backward", 0),
+             "path": "train " + tres["rwkv_step"]["arch"],
+             **{x: b[x] for x in keys}, "bound_share": b["bound_ms"] / b["ms"]}]
 
 
 def finish(spills: dict) -> int:
     """Fail on a spilling instantiation; else print the ok/device record."""
     import torch
-    for src in ("flash_prefill.cu", "wkv6.cu", "kv_quant.cu", "kv_restore.cu", "rglru_scan.cu"):
+    for src in ("flash_prefill.cu", "wkv6.cu", "wkv6_bwd.cu", "kv_quant.cu", "kv_restore.cu",
+                "rglru_scan.cu"):
         if spills.get(src):
             raise AssertionError(f"{src} spills: {spills[src]}")
     print(json.dumps({"ok": True, "device": {

@@ -49,6 +49,11 @@
 //   and y needs a sum over 16 lanes (30 shuffles a chunk).  Tensor cores
 //   would take the two products off the shared-memory path.
 //
+// Head sizes: each kernel is a template on the head size Dh and is built for
+// 64 (rwkv6-7b; the numbers above) and 32 (the reduced config the CPU tests
+// and a reduced training run use), the chunked kernel with 4 Dh threads a
+// block (at 32: one variant, 16 steps and all 32 columns a block).
+//
 // Invariance: a chunk's arithmetic depends only on its own inputs and
 // S_in, and chunks start at the call's first step, so one pass equals
 // chained calls whose boundaries are multiples of C, bit for bit.
@@ -57,11 +62,8 @@
 
 namespace {
 
-constexpr int DH = 64;           // head size the kernels are built for
 constexpr int SC = 16;           // state columns a block of the one-step kernel
-constexpr int SNT = DH * SC / 4; // its threads: one float4 of state each
-constexpr int NT = 256;          // threads a block of the chunked kernel
-constexpr int PD = 2;            // chunks its copies run ahead
+constexpr int PD = 2;            // chunks the chunked kernel's copies run ahead
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -75,13 +77,15 @@ __device__ __forceinline__ float comp(const float4& a, int q) {
 // One step (decode)
 // ---------------------------------------------------------------------------
 
-// grid (DH / SC, H, B), block SNT threads; thread (row, cq) holds columns
-// col0 + 4 cq .. + 3 of state row `row`
-__global__ void __launch_bounds__(SNT)
+// head size DH; grid (DH / SC, H, B), block DH * SC / 4 threads; thread
+// (row, cq) holds columns col0 + 4 cq .. + 3 of state row `row`
+template <int DH>
+__global__ void __launch_bounds__(DH * SC / 4)
 wkv6_step_kernel(const float* __restrict__ r, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ w,
                  const float* __restrict__ u, const float* __restrict__ s0,
                  float* __restrict__ y, float* __restrict__ s_last, int H) {
+  constexpr int SNT = DH * SC / 4;  // threads: one float4 of state each
   __shared__ __align__(16) float part[SNT / 32][SC];   // each warp's y over its 8 rows
   __shared__ float bonus_s;
 
@@ -96,8 +100,10 @@ wkv6_step_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const float4 vv = ld4(v + hb + col0 + 4 * cq);
 
   if (warp == 0) {   // the bonus r . (u * k), once a block
-    float p = r[hb + lane] * __fmul_rn(u[(size_t)h * DH + lane], k[hb + lane]);
-    p = fmaf(r[hb + lane + 32], __fmul_rn(u[(size_t)h * DH + lane + 32], k[hb + lane + 32]), p);
+    float p = 0.f;
+#pragma unroll
+    for (int x = lane; x < DH; x += 32)
+      p = fmaf(r[hb + x], __fmul_rn(u[(size_t)h * DH + x], k[hb + x]), p);
 #pragma unroll
     for (int m = 16; m >= 1; m >>= 1) p += __shfl_xor_sync(0xffffffffu, p, m);
     if (lane == 0) bonus_s = p;
@@ -155,9 +161,11 @@ __device__ __forceinline__ void reduce_scatter(float (&part)[V], int li) {
   }
 }
 
-// C steps a chunk, NJ state columns a block, CPT state columns a lane
-template <int C, int NJ, int CPT>
+// head size DH, C steps a chunk, NJ state columns a block, CPT state
+// columns a lane; 4 DH threads a block
+template <int DH, int C, int NJ, int CPT>
 struct Chunk {
+  static constexpr int NT = 4 * DH;          // threads a block
   static constexpr int IQ = NT / C;          // lanes sharing a score column pair
   static constexpr int IPT = DH / IQ;        // i a score lane sums over
   static constexpr int G = NT * CPT / NJ;    // lanes sharing a state column
@@ -180,21 +188,22 @@ struct Chunk {
   static_assert(IQ >= 4 && IQ <= 16 && IPT % 4 == 0, "score lanes");
   static_assert(G <= 16 && RPT % 4 == 0 && YV % CPT == 0 && YT >= 1, "state lanes");
   static_assert(CPT == 1 || CPT == 2 || CPT == 4, "columns a lane");
-  static_assert(64 % C == 0 && 64 % NJ == 0 && NT / 2 == 2 * DH, "shapes");
+  static_assert(64 % C == 0 && DH % NJ == 0 && NT / 2 == 2 * DH, "shapes");
   static_assert(BYTES <= 232448, "shared memory a block may have");
 };
 
-// grid (DH / NJ, H, B), block NT threads, Chunk<...>::BYTES dynamic smem.
+// grid (DH / NJ, H, B), block 4 DH threads, Chunk<...>::BYTES dynamic smem.
 // Iteration it, after one barrier: chunk it - 1 on the chain (y, S_out),
 // then chunk it's work that does not depend on S_in (A, E, P), while the
 // copies of chunk it + PD are in flight.
-template <int C, int NJ, int CPT>
-__global__ void __launch_bounds__(NT)
+template <int DH, int C, int NJ, int CPT>
+__global__ void __launch_bounds__(4 * DH)
 wkv6_chunk_kernel(const float* __restrict__ r, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ w,
                   const float* __restrict__ u, const float* __restrict__ s0,
                   float* __restrict__ y, float* __restrict__ s_last, int S, int H) {
-  using L = Chunk<C, NJ, CPT>;
+  using L = Chunk<DH, C, NJ, CPT>;
+  constexpr int NT = L::NT;
   extern __shared__ __align__(16) float smem[];
   float* const vs = smem + L::OFF_V;
   float* const rA = smem + L::OFF_RA;
@@ -459,12 +468,12 @@ wkv6_chunk_kernel(const float* __restrict__ r, const float* __restrict__ k,
     s_last[sbase + (size_t)(q / NJ) * DH + col0 + q % NJ] = stS[(q / NJ) * (NJ + 1) + q % NJ];
 }
 
-template <int C, int NJ, int CPT>
+template <int DH, int C, int NJ, int CPT>
 int launch_chunk(const void* r, const void* k, const void* v, const void* w,
                  const void* u, const void* s0, void* y, void* s_last, int B,
                  int S, int H, cudaStream_t stream) {
-  using L = Chunk<C, NJ, CPT>;
-  auto kernel = wkv6_chunk_kernel<C, NJ, CPT>;
+  using L = Chunk<DH, C, NJ, CPT>;
+  auto kernel = wkv6_chunk_kernel<DH, C, NJ, CPT>;
   static bool granted = false;   // one attribute call per instantiation
   if (!granted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -473,7 +482,7 @@ int launch_chunk(const void* r, const void* k, const void* v, const void* w,
     granted = true;
   }
   dim3 grid(DH / NJ, H, B);
-  kernel<<<grid, NT, L::BYTES, stream>>>(
+  kernel<<<grid, L::NT, L::BYTES, stream>>>(
       (const float*)r, (const float*)k, (const float*)v, (const float*)w,
       (const float*)u, (const float*)s0, (float*)y, (float*)s_last, S, H);
   return (int)cudaGetLastError();
@@ -481,35 +490,43 @@ int launch_chunk(const void* r, const void* k, const void* v, const void* w,
 
 }  // namespace
 
-// r, k, v, w (B, 1, H, 64) f32, u (H, 64) f32, s0 (B, H, 64, 64) f32
-//   -> y (B, 1, H, 64) f32, s_last (B, H, 64, 64) f32
+// r, k, v, w (B, 1, H, dh) f32, u (H, dh) f32, s0 (B, H, dh, dh) f32
+//   -> y (B, 1, H, dh) f32, s_last (B, H, dh, dh) f32; dh 32 or 64
 extern "C" int wkv6_step_f32(const void* r, const void* k, const void* v,
                              const void* w, const void* u, const void* s0,
-                             void* y, void* s_last, int B, int H, void* stream) {
-  dim3 grid(DH / SC, H, B);
-  wkv6_step_kernel<<<grid, SNT, 0, (cudaStream_t)stream>>>(
-      (const float*)r, (const float*)k, (const float*)v, (const float*)w,
-      (const float*)u, (const float*)s0, (float*)y, (float*)s_last, H);
-  return (int)cudaGetLastError();
+                             void* y, void* s_last, int B, int H, int dh, void* stream) {
+#define WKV6_STEP_CASE(DH_)                                                      \
+  if (dh == DH_) {                                                               \
+    wkv6_step_kernel<DH_><<<dim3(DH_ / SC, H, B), DH_ * SC / 4, 0, (cudaStream_t)stream>>>( \
+        (const float*)r, (const float*)k, (const float*)v, (const float*)w,      \
+        (const float*)u, (const float*)s0, (float*)y, (float*)s_last, H);        \
+    return (int)cudaGetLastError();                                              \
+  }
+  WKV6_STEP_CASE(64)
+  WKV6_STEP_CASE(32)
+#undef WKV6_STEP_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
-// r, k, v, w (B, S, H, 64) f32 with S >= 2, u (H, 64) f32, s0 (B, H, 64, 64)
-//   f32 -> y (B, S, H, 64) f32, s_last (B, H, 64, 64) f32.  The variant:
+// r, k, v, w (B, S, H, dh) f32 with S >= 2, u (H, dh) f32, s0 (B, H, dh, dh)
+//   f32 -> y (B, S, H, dh) f32, s_last (B, H, dh, dh) f32.  The variant:
 //   `chunk` steps a chunk, `cols` state columns a block, `lane_cols` state
-//   columns a lane (the Python wrapper's CHUNKED_VARIANTS).
+//   columns a lane (the Python wrapper's CHUNKED_VARIANTS for dh 64,
+//   CHUNKED_32 for dh 32).
 extern "C" int wkv6_f32(const void* r, const void* k, const void* v, const void* w,
                         const void* u, const void* s0, void* y, void* s_last,
-                        int B, int S, int H, int chunk, int cols, int lane_cols,
+                        int B, int S, int H, int dh, int chunk, int cols, int lane_cols,
                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define WKV6_CHUNK_CASE(C_, NJ_, CPT_)                                          \
-  if (chunk == C_ && cols == NJ_ && lane_cols == CPT_)                          \
-    return launch_chunk<C_, NJ_, CPT_>(r, k, v, w, u, s0, y, s_last, B, S, H, st);
-  WKV6_CHUNK_CASE(16, 32, 2)
-  WKV6_CHUNK_CASE(16, 32, 1)
-  WKV6_CHUNK_CASE(16, 64, 2)
-  WKV6_CHUNK_CASE(16, 16, 1)
-  WKV6_CHUNK_CASE(32, 32, 2)
+#define WKV6_CHUNK_CASE(DH_, C_, NJ_, CPT_)                                     \
+  if (dh == DH_ && chunk == C_ && cols == NJ_ && lane_cols == CPT_)             \
+    return launch_chunk<DH_, C_, NJ_, CPT_>(r, k, v, w, u, s0, y, s_last, B, S, H, st);
+  WKV6_CHUNK_CASE(64, 16, 32, 2)
+  WKV6_CHUNK_CASE(64, 16, 32, 1)
+  WKV6_CHUNK_CASE(64, 16, 64, 2)
+  WKV6_CHUNK_CASE(64, 16, 16, 1)
+  WKV6_CHUNK_CASE(64, 32, 32, 2)
+  WKV6_CHUNK_CASE(32, 16, 32, 2)
 #undef WKV6_CHUNK_CASE
   return (int)cudaErrorInvalidValue;
 }

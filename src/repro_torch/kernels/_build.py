@@ -55,10 +55,13 @@ _SIGNATURES = {
     "rglru_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
     # log_a, b, h0, h, h_last, n, vec, stream
     "rglru_scan_step_f32": [_P] * 5 + [_I] * 2 + [_P],
-    # r, k, v, w, u, s0, y, s_last, B, S, H, chunk, cols, lane_cols, stream
-    "wkv6_f32": [_P] * 8 + [_I] * 6 + [_P],
-    # r, k, v, w, u, s0, y, s_last, B, H, stream
-    "wkv6_step_f32": [_P] * 8 + [_I] * 2 + [_P],
+    # r, k, v, w, u, s0, y, s_last, B, S, H, dh, chunk, cols, lane_cols, stream
+    "wkv6_f32": [_P] * 8 + [_I] * 7 + [_P],
+    # r, k, v, w, u, s0, y, s_last, B, H, dh, stream
+    "wkv6_step_f32": [_P] * 8 + [_I] * 3 + [_P],
+    # r, k, v, w, u, s0, dy, ds_last (or null), dr, dk, dv, dw, du, ds0,
+    # starts, part, beta, du_part, B, S, H, dh, stream
+    "wkv6_bwd_f32": [_P] * 18 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

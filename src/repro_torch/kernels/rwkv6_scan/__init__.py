@@ -6,12 +6,25 @@ the TPU kernel's interface ``(r, k, v, w, u, s0) -> (y, s_last)``:
 
 Two CUDA kernels (``csrc/wkv6.cu``): a one-step kernel for decode (S = 1)
 and a chunked kernel for S >= 2 that walks the sequence in chunks of
-``CHUNK`` steps and builds every decay factor as a product of decays.
+``CHUNK`` steps and builds every decay factor as a product of decays.  Each
+is built for head sizes 64 (rwkv6-7b) and 32 (its reduced config).
 
-Neither has a backward kernel yet.  A tensor the kernels write carries no
-``grad_fn``, so on CUDA tensors the wrapper refuses to run where a
-gradient is wanted (``NO_BACKWARD``) rather than let it stop silently at
-the scan; on CPU tensors the plain version stays differentiable.
+The gradient runs through :class:`Wkv6Scan`, whose backward is a kernel of
+its own (``csrc/wkv6_bwd.cu``, :func:`wkv6_backward`): it walks the chunks
+forward once to save the state at each chunk start, then walks them in
+reverse, rebuilding each chunk's states step by step from its start and
+carrying the state's gradient G back, with G_{S-1} = ds_last:
+
+    dr_t = S_{t-1} dy_t + u k_t beta_t      (beta_t = v_t . dy_t)
+    dk_t = G_t v_t + u r_t beta_t
+    dv_t = G_t^T k_t + (r_t . (u * k_t)) dy_t
+    dw_t = rowsum(G_t * S_{t-1})
+    du   = sum over batch and time of r_t k_t beta_t
+    G_{t-1} = diag(w_t) G_t + r_t dy_t^T     (ds0 = G_{-1})
+
+:func:`wkv6` routes through :class:`Wkv6Scan` whenever a gradient is
+wanted, on the card and on the CPU alike (there the plain versions run,
+:func:`wkv6_backward_plain` being the backward kernel's algorithm).
 """
 from __future__ import annotations
 
@@ -21,7 +34,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_SIZE = 64               # the head size the kernels are built for
+HEAD_SIZES = (32, 64)        # the head sizes the kernels are built for
 # The chunked kernel's variants, (steps a chunk, state columns a block,
 # state columns a lane); CHUNKED is the one the wrapper launches, the
 # fastest in `chip_smoke.py --wkv-sweep`.  A chunk of 64 would hold 128
@@ -29,10 +42,9 @@ HEAD_SIZE = 64               # the head size the kernels are built for
 CHUNKED_VARIANTS = ((16, 32, 2), (16, 32, 1), (16, 64, 2), (16, 16, 1), (32, 32, 2))
 CHUNKED = (16, 32, 2)
 CHUNK = CHUNKED[0]           # steps a chunk
-NO_BACKWARD = ("wkv6: no backward kernel yet (ROADMAP.md, 'Modules to port' "
-               "item 2: the wkv6 backward kernel), so no gradient can flow "
-               "through the RWKV-6 scan on the card; train RWKV on the CPU "
-               "(device='cpu'), or run the forward under torch.no_grad()")
+CHUNKED_32 = (16, 32, 2)     # the chunked kernel's one build at head size 32
+BWD_CHUNK = 8                # csrc/wkv6_bwd.cu: steps a chunk of the backward
+BWD_THREADS = 512            # csrc/wkv6_bwd.cu: threads (state elements) a block
 
 
 def wkv6_plain(r, k, v, w, u, s0, dtype=torch.float32):
@@ -93,50 +105,162 @@ def wkv6_chunked_plain(r, k, v, w, u, s0, chunk: int = CHUNK):
     return y, s
 
 
-def wkv6(r, k, v, w, u, s0, *, variant=CHUNKED):
-    """The kernels on CUDA tensors (f32, contiguous, head size 64): the
-    one-step kernel when S == 1, else the chunked kernel built as
-    ``variant`` (one of ``CHUNKED_VARIANTS``); the plain version on CPU
-    tensors.  On CUDA tensors that want a gradient it raises
-    ``NO_BACKWARD``."""
-    if r.device.type == "cpu":
-        return wkv6_plain(r, k, v, w, u, s0)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, s0)):
-        raise RuntimeError(NO_BACKWARD)
-    if not all(t.is_contiguous() for t in (r, k, v, w, u, s0)):
-        raise ValueError("wkv6: the CUDA kernels take contiguous r, k, v, w, u "
+def _check(name, r, k, v, w, u, s0, *more):
+    """The kernels take contiguous f32 tensors of a head size Dh in
+    HEAD_SIZES on one CUDA device, 16-byte aligned: r, k, v, w (and ``more``
+    of their shape) (B, S, H, Dh), u (H, Dh), s0 (B, H, Dh, Dh).  Returns
+    (B, S, H, Dh)."""
+    ins = (r, k, v, w, u, s0, *more)
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError(f"{name}: the CUDA kernels take contiguous r, k, v, w, u "
                          "and s0")
-    if not all(t.dtype == torch.float32 for t in (r, k, v, w, u, s0)):
-        raise ValueError("wkv6: the CUDA kernels take f32 r, k, v, w, u and s0")
+    if not all(t.dtype == torch.float32 for t in ins):
+        raise ValueError(f"{name}: the CUDA kernels take f32 r, k, v, w, u and s0")
     bsz, s, h, dh = r.shape
-    if (dh != HEAD_SIZE or s < 1
-            or any(tuple(t.shape) != (bsz, s, h, dh) for t in (k, v, w))
+    if (dh not in HEAD_SIZES or s < 1
+            or any(tuple(t.shape) != (bsz, s, h, dh) for t in (k, v, w, *more))
             or tuple(u.shape) != (h, dh) or tuple(s0.shape) != (bsz, h, dh, dh)):
-        raise ValueError(f"wkv6: the CUDA kernels take head size {HEAD_SIZE} "
+        raise ValueError(f"{name}: the CUDA kernels take head sizes {HEAD_SIZES} "
                          f"only; unsupported shapes r {tuple(r.shape)} u "
                          f"{tuple(u.shape)} s0 {tuple(s0.shape)}")
-    if tuple(variant) not in CHUNKED_VARIANTS:
-        raise ValueError(f"wkv6: no chunked CUDA kernel variant {variant}; "
-                         f"built: {CHUNKED_VARIANTS}")
-    _build.require_cuda("wkv6", r, k, v, w, u, s0)
-    if any(t.data_ptr() % 16 for t in (r, k, v, w, u, s0)):
-        raise ValueError("wkv6: r, k, v, w, u and s0 must be 16-byte aligned")
+    _build.require_cuda(name, *ins)
+    if any(t.data_ptr() % 16 for t in ins):
+        raise ValueError(f"{name}: r, k, v, w, u and s0 must be 16-byte aligned")
+    return bsz, s, h, dh
+
+
+def _forward(r, k, v, w, u, s0, variant):
+    """The forward kernels on CUDA tensors, the plain version on CPU ones."""
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u, s0)
+    built = CHUNKED_VARIANTS if r.shape[-1] == 64 else (CHUNKED_32,)
+    variant = built[0] if variant is None else tuple(variant)
+    if variant not in built:
+        raise ValueError(f"wkv6: no chunked CUDA kernel variant {variant} at head "
+                         f"size {r.shape[-1]}; built: {built}")
+    bsz, s, h, dh = _check("wkv6", r, k, v, w, u, s0)
     y = torch.empty_like(r)
     s_last = torch.empty_like(s0)
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             s0.data_ptr(), y.data_ptr(), s_last.data_ptr())
     if s == 1:
-        rc = _build.lib().wkv6_step_f32(*ptrs, bsz, h, _build.stream_of(r))
+        rc = _build.lib().wkv6_step_f32(*ptrs, bsz, h, dh, _build.stream_of(r))
         _build.check_launch("wkv6 (one step)", rc)
         wkv6.step_launches += 1
     else:
-        rc = _build.lib().wkv6_f32(*ptrs, bsz, s, h, *variant, _build.stream_of(r))
+        rc = _build.lib().wkv6_f32(*ptrs, bsz, s, h, dh, *variant, _build.stream_of(r))
         _build.check_launch("wkv6", rc)
     wkv6.launches += 1
     wkv6.launches_by_len[s] += 1
     return y, s_last
 
 
-wkv6.launches = 0                # every call that launched a kernel
+def wkv6(r, k, v, w, u, s0, *, variant=None):
+    """The kernels on CUDA tensors (f32, contiguous, head size 32 or 64):
+    the one-step kernel when S == 1, else the chunked kernel built as
+    ``variant`` (at head size 64 one of ``CHUNKED_VARIANTS``, CHUNKED by
+    default; at 32 CHUNKED_32); the plain version on CPU tensors.  Where a
+    gradient is wanted, through :class:`Wkv6Scan`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, s0)):
+        return Wkv6Scan.apply(r, k, v, w, u, s0, variant)
+    return _forward(r, k, v, w, u, s0, variant)
+
+
+wkv6.launches = 0                # every forward call that launched a kernel
 wkv6.step_launches = 0           # of those, the one-step kernel's
-wkv6.launches_by_len = collections.Counter()   # launches by S
+wkv6.launches_by_len = collections.Counter()   # forward launches by S
+wkv6.backward_launches = 0       # calls of the backward kernel (apart from those)
+
+
+def wkv6_backward_plain(r, k, v, w, u, s0, dy, ds_last=None, dtype=torch.float32,
+                        chunk: int = BWD_CHUNK):
+    """The backward kernel's algorithm in plain torch, in ``dtype`` (tests
+    and ``chip_smoke.py``; nothing on the card's path calls it): the state
+    at each chunk start from a forward walk, then the chunks in reverse,
+    each chunk's states S_{t-1} rebuilt step by step from its start (the
+    forward's product, product, sum), and the steps of the module docstring
+    from the chunk's last step down.  ``ds_last`` None is a zero gradient.
+    Returns (dr, dk, dv, dw, du, ds0) in ``dtype``."""
+    r, k, v, w, dy = (a.to(dtype) for a in (r, k, v, w, dy))
+    u, s = u.to(dtype), s0.to(dtype)
+    n = r.shape[1]
+
+    def step(s_, t):
+        return s_ * w[:, t, :, :, None] + k[:, t, :, :, None] * v[:, t, :, None, :]
+
+    starts = []
+    for c0 in range(0, n, chunk):
+        starts.append(s)
+        if c0 + chunk < n:
+            for t in range(c0, c0 + chunk):
+                s = step(s, t)
+    g = torch.zeros_like(s) if ds_last is None else ds_last.to(dtype).clone()
+    beta = (v * dy).sum(-1, keepdim=True)                    # (B, S, H, 1)
+    bonus = (r * u * k).sum(-1, keepdim=True)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    for ci in reversed(range(len(starts))):
+        c0 = ci * chunk
+        c1 = min(c0 + chunk, n)
+        hist = [starts[ci]]
+        for t in range(c0, c1 - 1):
+            hist.append(step(hist[-1], t))
+        for t in reversed(range(c0, c1)):
+            sp = hist[t - c0]
+            dr[:, t] = (torch.einsum("bhij,bhj->bhi", sp, dy[:, t])
+                        + u * k[:, t] * beta[:, t])
+            dk[:, t] = (torch.einsum("bhij,bhj->bhi", g, v[:, t])
+                        + u * r[:, t] * beta[:, t])
+            dv[:, t] = torch.einsum("bhi,bhij->bhj", k[:, t], g) + bonus[:, t] * dy[:, t]
+            dw[:, t] = (g * sp).sum(-1)
+            g = g * w[:, t, :, :, None] + r[:, t, :, :, None] * dy[:, t, :, None, :]
+    du = (r * k * beta).sum((0, 1))
+    return dr, dk, dv, dw, du, g
+
+
+def wkv6_backward(r, k, v, w, u, s0, dy, ds_last=None):
+    """The backward kernel on CUDA tensors (as :func:`wkv6` takes them, with
+    dy like r and ds_last like s0 or None for a zero gradient), the plain
+    version in f32 on CPU tensors.  Returns (dr, dk, dv, dw, du, ds0)."""
+    if r.device.type == "cpu":
+        return wkv6_backward_plain(r, k, v, w, u, s0, dy, ds_last)
+    bsz, s, h, dh = _check("wkv6_backward", r, k, v, w, u, s0, dy)
+    if ds_last is not None:
+        _check("wkv6_backward", r, k, v, w, u, ds_last)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du, ds0 = torch.empty_like(u), torch.empty_like(s0)
+    nc = -(-s // BWD_CHUNK)
+    starts = torch.empty((bsz, h, nc, dh, dh), dtype=torch.float32, device=r.device)
+    part = torch.empty((3, dh * dh // BWD_THREADS) + tuple(r.shape), dtype=torch.float32,
+                       device=r.device)
+    beta = torch.empty((bsz, s, h), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((bsz, h, dh), dtype=torch.float32, device=r.device)
+    rc = _build.lib().wkv6_bwd_f32(
+        *(t.data_ptr() for t in (r, k, v, w, u, s0, dy)),
+        None if ds_last is None else ds_last.data_ptr(),
+        *(t.data_ptr() for t in (dr, dk, dv, dw, du, ds0, starts, part, beta, du_part)),
+        bsz, s, h, dh, _build.stream_of(r))
+    _build.check_launch("wkv6_backward", rc)
+    wkv6.backward_launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+class Wkv6Scan(torch.autograd.Function):
+    """``wkv6`` with gradients: the forward kernels forward, the backward
+    kernel backward (the plain versions on CPU tensors).  A gradient that
+    does not reach ``y`` or ``s_last`` arrives as None (zero)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, variant=None):
+        ctx.set_materialize_grads(False)
+        y, s_last = _forward(r, k, v, w, u, s0, variant)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return y, s_last
+
+    @staticmethod
+    def backward(ctx, dy, ds_last):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.contiguous()
+        ds_last = None if ds_last is None else ds_last.contiguous()
+        grads = wkv6_backward(r, k, v, w, u, s0, dy, ds_last)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None)

@@ -14,8 +14,9 @@ complete manifest in ``--ckpt-dir`` — and an injected host failure
 newest save started before the failure: the injection lets it land).
 Training runs in f32, as the reference's does; ``allow_tf32`` stays off.
 Weights come from ``Model.init`` on a generator of the run's device seeded
-0.  An RWKV-6 arch cannot train on the card yet: ``wkv6`` has no backward
-kernel (``NO_BACKWARD``), and the run says so before it builds anything.
+0.  Every arch of the registry trains on the card: the scans' gradients
+run in their own kernels (``rglru_scan`` over reversed time, ``wkv6``'s
+backward kernel).
 """
 from __future__ import annotations
 
@@ -28,7 +29,6 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.distributed.fault_tolerance import HostFailure, TrainingSupervisor
-from repro_torch.kernels.rwkv6_scan import NO_BACKWARD
 from repro_torch.models import build_model, resolve_device
 from repro_torch.training import (AdamWConfig, CheckpointManager, DataConfig,
                                   batch_at, embedding_batch_at, init_opt_state,
@@ -67,8 +67,6 @@ def run(arch: str, *, reduced: bool, steps: int, ckpt_dir: Optional[str] = None,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    if cfg.rwkv is not None and dev.type == "cuda":
-        raise RuntimeError(f"{arch}: {NO_BACKWARD}")
     if fail_at_step >= 0 and ckpt_dir is None:
         raise ValueError("an injected failure needs a checkpoint directory to resume from")
     model = build_model(cfg, remat_policy="dots", device=dev)

@@ -16,7 +16,13 @@ converts the reference's ``Model.init`` pytree into this layout.
 Serving is dropless: the port's MoE dispatch ignores the config's
 ``capacity_factor`` (the reference's ``Model`` replaces it by 0), so
 chunked recomputation reproduces the full-prefill KV.  ``forward`` takes
-the capacity path only in a model built with ``moe_dropless=False``.
+the capacity path only in a model built with ``moe_dropless=False``;
+``moe_groups`` runs the MoE over that many groups of the sequence, one
+after another, in the full and cached layers.
+
+``decode_step_append`` is the reference's append-buffer decode: the new
+token's KV goes into a small tail (``init_tail``) and attention runs over
+[cache || tail] in ``flash_decode``, the prefix cache left read-only.
 
 ``remat_policy`` rematerialises each layer of ``forward`` in the backward
 pass (``torch.utils.checkpoint``, non-reentrant): ``"full"`` and
@@ -41,6 +47,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.kvcache import cache_seq_len, init_cache, layer_slots
 from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
@@ -60,7 +69,7 @@ def resolve_device(device) -> torch.device:
 class Model:
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.float32,
                  compute_dtype=torch.float32, device="cuda", remat_policy: str = "none",
-                 moe_dropless: bool = True):
+                 moe_groups: int = 0, moe_dropless: bool = True):
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r}: one of {REMAT_POLICIES}")
         self.cfg = cfg
@@ -68,6 +77,7 @@ class Model:
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         self.remat_policy = remat_policy
+        self.moe_groups = moe_groups
         self.moe_dropless = moe_dropless
         self.slots = layer_slots(cfg)
 
@@ -134,7 +144,8 @@ class Model:
         kinds' carried state).  Returns (x', cache entry or new state, aux)."""
         cfg = self.cfg
         if kind == "attention":
-            return tfm.attention_layer_full(cfg, p, x, positions, dropless=self.moe_dropless)
+            return tfm.attention_layer_full(cfg, p, x, positions, dropless=self.moe_dropless,
+                                            moe_groups=self.moe_groups)
         if kind == "recurrent":
             conv, h0 = states
             x, conv, h = tfm.recurrent_layer_full(cfg, p, x, conv, h0)
@@ -254,7 +265,8 @@ class Model:
         if kind == "attention":
             fields = ("ckv", "kpos") if self.cfg.mla is not None else ("k", "v", "kpos")
             view = {f: cache[f][slot] for f in fields}
-            x, _ = tfm.attention_layer_cached(self.cfg, p, x, positions, view)
+            x, _ = tfm.attention_layer_cached(self.cfg, p, x, positions, view,
+                                              moe_groups=self.moe_groups)
             return x, cache
         if kind == "recurrent":
             x, conv, h = tfm.recurrent_layer_full(self.cfg, p, x,
@@ -312,6 +324,76 @@ class Model:
         return logits[:, 0], cache
 
     # ------------------------------------------------------------------
+    # Append-buffer decode
+    # ------------------------------------------------------------------
+    def decode_step_append(self, params, tokens, cache, tail, tail_len: int, pos: int):
+        """Append-buffer decode: the prefix ``cache`` stays read-only; the new
+        token's KV (or MLA latent) goes into slot ``tail_len`` of a small
+        ``tail`` (``init_tail``: a cache of W slots, kpos -1 where empty),
+        and every layer attends over [cache || tail], the two concatenated
+        with their kpos.  The reference's one-device branch; its
+        sequence-sharded branch (``lse_decode_attention`` over a mesh) is not
+        ported.  A uniform attention stack only, as the reference.
+
+        tokens (B,) (or (B, D) embeddings); pos: int.  The tail is written
+        in place.  Returns (logits (B, V), tail)."""
+        cfg = self.cfg
+        if not (cfg.is_uniform and cfg.num_layers) or cfg.layer_kinds()[0] != "attention":
+            raise ValueError(f"{cfg.name}: append-buffer decode requires a uniform "
+                             "attention stack (every layer alike, no dense prefix)")
+        b = tokens.shape[0]
+        positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=self.device)
+        x = self.embed(params, tokens[:, None], positions)
+        x, tail = self._decode_append_scan(params, x, positions, cache, tail, int(tail_len),
+                                           int(pos))
+        return self.unembed(params, x)[:, 0], tail
+
+    def _decode_append_scan(self, params, x, positions, cache, tail, tail_len: int,
+                            pos: int):
+        """The layers in order (the reference's ``lax.scan`` over its
+        stacked layers); ``pos`` is ``positions``' value on the host.  Each
+        layer's attention reads a copy of its whole cache slot joined to its
+        tail slot, as the reference's concatenation does.  Returns (x,
+        tail)."""
+        cfg = self.cfg
+        scale = 1.0 / (cfg.qk_head_dim ** 0.5)
+        for i, p in enumerate(params["layers"]):
+            _, slot = self.slots[i]
+            h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+            tail["kpos"][slot, tail_len] = pos
+            kp = torch.cat([cache["kpos"][slot], tail["kpos"][slot]])
+            if cfg.mla is not None:
+                q_nope, q_rope = mla_mod._project_q(cfg, p["attn"], h, positions)
+                ckv = tail["ckv"][slot]
+                ckv[:, tail_len] = mla_mod.compress_kv(cfg, p["attn"], h,
+                                                       positions)[:, 0].to(ckv.dtype)
+                full = torch.cat([cache["ckv"][slot], ckv], dim=1)
+                a = mla_mod.mla_attend_absorbed(cfg, p["attn"], q_nope, q_rope, positions,
+                                                full.to(h.dtype), kp)
+            else:
+                q, k_new, v_new = attn_mod.project_qkv(cfg, p["attn"], h, positions)
+                kt, vt = tail["k"][slot], tail["v"][slot]
+                kt[:, tail_len] = k_new[:, 0].to(kt.dtype)
+                vt[:, tail_len] = v_new[:, 0].to(vt.dtype)
+                k_full = torch.cat([cache["k"][slot], kt], dim=1).to(q.dtype)
+                v_full = torch.cat([cache["v"][slot], vt], dim=1).to(q.dtype)
+                a = flash_decode(q[:, 0].contiguous(), k_full, v_full, kp, pos,
+                                 scale=scale, window=cfg.attn_window)
+                a = a.reshape(*h.shape[:2], cfg.num_heads * cfg.head_dim)
+                a = a @ p["attn"]["wo"].to(h.dtype)
+            x = x + a
+            h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+            f, _ = tfm._ffn(cfg, p, h, moe_groups=self.moe_groups)
+            x = x + f
+        return x, tail
+
+    def init_tail(self, batch: int, window: int, dtype=None) -> dict:
+        """The small append buffer of ``decode_step_append``: a cache of
+        ``window`` slots, every kpos -1."""
+        return init_cache(self.cfg, batch, window, dtype or self.compute_dtype,
+                          self.device)
+
+    # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=None):
         return init_cache(self.cfg, batch, max_len, dtype or self.compute_dtype,
                           self.device)
@@ -340,11 +422,12 @@ def _remat(fn, policy: str):
 
 def build_model(cfg: ModelConfig, *, param_dtype=torch.float32,
                 compute_dtype=torch.float32, device="cuda", remat_policy: str = "none",
-                moe_dropless: bool = True) -> Model:
+                moe_groups: int = 0, moe_dropless: bool = True) -> Model:
     """The reference's ``build_model``: a ``Model`` of ``cfg`` (the port's
     holds no compiled state, so there is nothing to cache)."""
     return Model(cfg, param_dtype=param_dtype, compute_dtype=compute_dtype,
-                 device=device, remat_policy=remat_policy, moe_dropless=moe_dropless)
+                 device=device, remat_policy=remat_policy, moe_groups=moe_groups,
+                 moe_dropless=moe_dropless)
 
 
 def _leaves(tree):

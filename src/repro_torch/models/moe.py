@@ -16,12 +16,16 @@ a decode step reads every expert's weights.  ``dropless=False`` (a
 ``Model`` built with ``moe_dropless=False``, as the reference's train-step
 smoke test builds it) takes the reference's capacity path: ``cap =
 max(1, int(T·k/E·capacity_factor))`` slots an expert, the pairs whose slot
-is ``cap`` or more dropped.  The reference's one-hot einsum dispatch
-(``_moe_group_einsum``) is not ported.
+is ``cap`` or more dropped.  There the module switch ``DISPATCH`` picks the
+reference's mechanism: ``"scatter"`` (the default) or ``"einsum"``, the
+GShard one-hot dispatch (``_moe_group_einsum``: (T, E, cap) dispatch and
+combine tensors contracted with ``torch.einsum``, as the reference computes
+them outside any Pallas kernel).
 
-``apply_moe``'s ``num_groups`` runs groups of the sequence axis one after
-another (the reference's ``lax.scan``), as the reference's full-sequence
-path uses it; the serving path does not.
+``apply_moe``'s ``num_groups`` (a ``Model`` built with ``moe_groups``,
+through its full and cached layers) runs groups of the sequence axis one
+after another (the reference's ``lax.scan``); the serving engine builds no
+such model.
 """
 from __future__ import annotations
 
@@ -69,15 +73,27 @@ def top_k_lower_index_first(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+# dispatch of the capacity path: "scatter" (the (token, k) pairs scattered
+# into the expert buffer and gathered back) or "einsum" (the reference's
+# GShard one-hot dispatch and combine products); the dropless path always
+# scatters, as the reference's does
+DISPATCH = "scatter"
+
+
 def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
               dropless: bool = True):
     """One group of tokens through the routed experts: dropless, or with
-    ``dropless=False`` and a ``capacity_factor`` > 0 the capacity path.
+    ``dropless=False`` and a ``capacity_factor`` > 0 the capacity path
+    (through ``_moe_group_einsum`` when ``DISPATCH`` is ``"einsum"``).
 
     x: (T, D) -> (y (T, D), aux_loss f32 scalar)
     """
     t, d = x.shape
     e, k = moe.num_experts, moe.top_k
+    capacity = not dropless and moe.capacity_factor > 0
+    if capacity and DISPATCH == "einsum":
+        return _moe_group_einsum(params, x, moe, activation,
+                                 max(1, int(t * k / e * moe.capacity_factor)))
     logits = x.float() @ params["router"].float()                             # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = top_k_lower_index_first(probs, k)                          # (T, k)
@@ -91,7 +107,7 @@ def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
     slot = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0].long()           # (T·k,)
 
     x_rep = x.repeat_interleave(k, dim=0)                                     # (T·k, D)
-    if dropless or moe.capacity_factor <= 0:
+    if not capacity:
         buf = torch.zeros((e, t, d), dtype=x.dtype, device=x.device)
         buf[flat_e, slot] = x_rep
         y_rep = _expert_ffn(params, buf, activation)[flat_e, slot]          # (T·k, D)
@@ -112,6 +128,38 @@ def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
     # load-balancing aux loss (Switch style)
     me = probs.mean(dim=0)
     ce = onehot.sum(dim=0).float() / (t * k)          # bincount, with no host sync
+    aux = e * torch.sum(me * ce) * moe.router_aux_loss
+    return y, aux
+
+
+def _moe_group_einsum(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
+                      cap: int):
+    """The reference's GShard one-hot dispatch on the capacity path: the
+    (T, E, cap) dispatch tensor (pair (t, k) to its expert's slot, pairs at
+    slot ``cap`` or more dropped) and the combine tensor (the same weighted
+    by the router's renormalised top-k probabilities) contract x into the
+    expert buffer and the experts' outputs back.  x: (T, D) -> (y, aux)."""
+    t, _ = x.shape
+    e, k = moe.num_experts, moe.top_k
+    probs = torch.softmax(x.float() @ params["router"].float(), dim=-1)
+    top_p, top_i = top_k_lower_index_first(probs, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    onehot_e = (top_i[..., None] == torch.arange(e, device=x.device)).float()  # (T,k,E)
+    flat = onehot_e.reshape(t * k, e)
+    pos = torch.cumsum(flat, dim=0) - flat
+    slot = (pos.reshape(t, k, e) * onehot_e).sum(-1).to(torch.int32)            # (T,k)
+    keep = slot < cap
+    onehot_c = ((slot[..., None] == torch.arange(cap, device=x.device))
+                & keep[..., None]).to(x.dtype)                                   # (T,k,C)
+    oe = onehot_e.to(x.dtype)
+    disp = torch.einsum("tke,tkc->tec", oe, onehot_c)
+    comb = torch.einsum("tke,tkc,tk->tec", oe, onehot_c, top_p.to(x.dtype))
+    buf = torch.einsum("tec,td->ecd", disp, x)
+    y = torch.einsum("tec,ecd->td", comb, _expert_ffn(params, buf, activation))
+
+    me = probs.mean(dim=0)
+    ce = onehot_e.sum(dim=(0, 1)) / (t * k)
     aux = e * torch.sum(me * ce) * moe.router_aux_loss
     return y, aux
 

@@ -8,10 +8,12 @@ state S in R^{Dh x Dh}):
 
 with data-dependent decay w_t = exp(-exp(w0 + tanh(x_w W1) W2)) in (0, 1)
 and data-dependent token-shift mixing (the five-way "ddlerp" LoRA).  The
-recurrence runs in the port's ``wkv6`` kernel on a CUDA tensor and in its
+recurrence runs in the port's ``wkv6`` kernels on a CUDA tensor and in its
 plain version on a CPU tensor; both step in time order, so a chunk carried
 on from the previous chunk's state gives the same state as one pass over
-both (what layer-wise restoration relies on).
+both (what layer-wise restoration relies on).  Under gradients ``wkv6``
+runs through its autograd Function, whose backward is a kernel of its own
+on the card.
 
 Attention-free: no KV cache.  A layer's carried state is the wkv matrix per
 head (f32) and the last token of each mix's input (the token shift); its

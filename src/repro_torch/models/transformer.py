@@ -48,16 +48,19 @@ def init_layer(cfg: ModelConfig, layer_idx: int, dtype,
     return p
 
 
-def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, dropless: bool = True):
+def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, dropless: bool = True,
+         moe_groups: int = 0):
     """(y, aux): the MoE's load-balancing loss (an f32 tensor), or 0.0 for a
-    dense FFN (no device op for a loss nothing reads)."""
+    dense FFN (no device op for a loss nothing reads).  ``moe_groups`` is
+    ``apply_moe``'s ``num_groups``."""
     if "moe" in p:
-        return moe_mod.apply_moe(p["moe"], h, cfg, dropless=dropless)
+        return moe_mod.apply_moe(p["moe"], h, cfg, num_groups=moe_groups,
+                                 dropless=dropless)
     return apply_mlp(p["mlp"], h, cfg.activation), 0.0
 
 
 def attention_layer_full(cfg: ModelConfig, p: dict, x, positions, *,
-                         dropless: bool = True):
+                         dropless: bool = True, moe_groups: int = 0):
     """Whole-sequence attention layer (MHA/GQA or MLA) with its dense or MoE
     FFN; positions (B, S) on x's device.  Returns (x', cache entry for the
     whole sequence — {"k", "v"} or {"ckv"} —, aux)."""
@@ -70,12 +73,12 @@ def attention_layer_full(cfg: ModelConfig, p: dict, x, positions, *,
         entry = {"k": k, "v": v}
     x = x + a
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    f, aux = _ffn(cfg, p, h, dropless)
+    f, aux = _ffn(cfg, p, h, dropless, moe_groups)
     return x + f, entry, aux
 
 
 def attention_layer_cached(cfg: ModelConfig, p: dict, x, positions,
-                           layer_cache: dict):
+                           layer_cache: dict, *, moe_groups: int = 0):
     """layer_cache: {"k","v","kpos"} or, with MLA, {"ckv","kpos"} views of
     THIS layer's cache slot, updated in place.  Returns (x', layer_cache)."""
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
@@ -90,7 +93,7 @@ def attention_layer_cached(cfg: ModelConfig, p: dict, x, positions,
         new_cache = {"k": k, "v": v, "kpos": kpos}
     x = x + a
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    f, _ = _ffn(cfg, p, h)
+    f, _ = _ffn(cfg, p, h, moe_groups=moe_groups)
     return x + f, new_cache
 
 

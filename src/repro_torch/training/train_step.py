@@ -2,10 +2,9 @@
 (counterpart of ``repro.training.train_step``).
 
 Gradients come from ``torch.autograd`` through the model's plain functions
-and, on the card, through the kernels that have a backward
-(``rglru_scan``, whose backward is the same kernel over reversed time);
-``wkv6`` has none yet and refuses to run under gradients on the card.  A
-parameter the loss does not reach makes ``torch.autograd.grad`` raise
+and, on the card, through the scan kernels' gradient Functions
+(``rglru_scan``, whose backward is the same kernel over reversed time, and
+``wkv6``, whose backward is a kernel of its own).  A parameter the loss does not reach makes ``torch.autograd.grad`` raise
 rather than hand back no gradient.
 """
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The port's whole-sequence path (``Model.forward``, ``Model.prefill``,
 ``attention_full``, ``mla_full``, the MoE capacity path) held to the JAX
-reference on the CPU, f32, at every reduced config of the registry.
+reference on the CPU, f32, at every reduced config of the registry, and
+``Model.forward`` past the 8192 keys above which the attention is blocked.
 
 Weights: the reference's ``Model.init`` (or ``init_attention`` /
 ``init_mla`` / ``init_moe``) as numpy, through ``params_from_jax``; inputs:
@@ -262,3 +263,23 @@ def test_moe_capacity_path_drops_what_the_reference_drops(arch, capacity):
     assert abs(float(taux) - float(jaux)) <= AUX_TOL
     ty_all, _ = t_moe.moe_group(tp, torch.from_numpy(x), moe_t, cfg_j.activation)
     _close(ty_all, jy_all)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-v2-236b"])
+def test_forward_past_the_blocked_threshold_matches_reference(arch):
+    """``Model.forward`` over 8320 tokens, past the 8192 keys above which
+    both packages take the blocked online softmax (GQA, and MLA's
+    ``mla_full``), at one layer (deepseek-v2-236b's dense first layer):
+    logits within LOGIT_TOL."""
+    s = 8320
+    cfg_j = dataclasses.replace(j_get_config(arch).reduced(), num_layers=1)
+    cfg_t = dataclasses.replace(get_config(arch).reduced(), num_layers=1)
+    jm = j_build(cfg_j)
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    x = np.random.default_rng(3).integers(0, cfg_t.vocab_size, (1, s)).astype(np.int32)
+    jl, _ = jax.jit(jm.forward)(jax.tree.map(jnp.asarray, tree), jnp.asarray(x))
+    tm = build_model(cfg_t, device="cpu")
+    with torch.no_grad():
+        tl, _ = tm.forward(params_from_jax(tree, device="cpu"), torch.from_numpy(x))
+    assert tl.shape == (1, s, cfg_t.vocab_size)
+    _close(tl, jl, LOGIT_TOL)

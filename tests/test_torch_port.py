@@ -115,4 +115,4 @@ def test_import_builds_nothing():
     assert _build._lib is None
     assert _build.CSRC.is_dir() and sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
         "flash_decode.cu", "flash_prefill.cu", "kv_quant.cu", "kv_restore.cu",
-        "rglru_scan.cu", "wkv6.cu"]
+        "rglru_scan.cu", "wkv6.cu", "wkv6_bwd.cu"]

@@ -1,8 +1,10 @@
 """The port's training path held to the JAX reference on the CPU, f32:
 gradients of ``lm_loss`` leaf by leaf (``jax.grad`` against
 ``torch.autograd``) and one ``make_train_step`` (loss, ``grad_norm``) for
-seven reduced archs, AdamW and its schedule fed identical gradients, grad
-accumulation, the remat policies, and the RG-LRU scan's gradient Function.
+all 13 reduced archs (recurrentgemma-2b also at S = 200, past its window of
+64), AdamW and its schedule fed identical gradients, grad
+accumulation, the remat policies, the RG-LRU scan's gradient Function,
+and ``wkv6``'s route through its own (``Wkv6Scan``) under gradients.
 
 Weights: the reference's ``Model.init`` as numpy through
 ``params_from_jax``; batches: numpy from a seed, fed to both packages.  The
@@ -46,7 +48,7 @@ from repro.training.optimizer import schedule as j_schedule  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.rglru_scan import (RglruScan, rglru_scan_grad,  # noqa: E402
                                             rglru_scan_plain)
-from repro_torch.kernels.rwkv6_scan import NO_BACKWARD, wkv6  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import wkv6  # noqa: E402
 from repro_torch.models import build_model, params_from_jax  # noqa: E402
 from repro_torch.models.model import _leaves  # noqa: E402
 from repro_torch.training import (AdamWConfig, DataConfig, OptState,  # noqa: E402
@@ -56,15 +58,24 @@ from repro_torch.training import (AdamWConfig, DataConfig, OptState,  # noqa: E4
 GRAD_TOL = 1e-4
 OPT_TOL = 1e-6
 B = 2
-# arch -> (S, grad tol, grad_norm tol, moe_dropless)
+# case -> (arch, S, grad tol, grad_norm tol, moe_dropless); a case is named
+# by its arch, or by arch@S where one arch runs at a second length
 ARCHS = {
-    "qwen1.5-0.5b": (16, GRAD_TOL, 1e-5, True),
-    "qwen3-8b": (16, GRAD_TOL, 1e-5, True),
-    "deepseek-moe-16b": (16, GRAD_TOL, 1e-5, False),
-    "deepseek-v2-236b": (16, GRAD_TOL, 1e-5, True),
-    "recurrentgemma-2b": (16, GRAD_TOL, 1e-5, True),
-    "rwkv6-7b": (128, 1e-3, 1e-4, True),
-    "musicgen-large": (16, GRAD_TOL, 1e-5, True),
+    "qwen1.5-0.5b": ("qwen1.5-0.5b", 16, GRAD_TOL, 1e-5, True),
+    "qwen3-8b": ("qwen3-8b", 16, GRAD_TOL, 1e-5, True),
+    "deepseek-moe-16b": ("deepseek-moe-16b", 16, GRAD_TOL, 1e-5, False),
+    "deepseek-v2-236b": ("deepseek-v2-236b", 16, GRAD_TOL, 1e-5, True),
+    "recurrentgemma-2b": ("recurrentgemma-2b", 16, GRAD_TOL, 1e-5, True),
+    "rwkv6-7b": ("rwkv6-7b", 128, 1e-3, 1e-4, True),
+    "musicgen-large": ("musicgen-large", 16, GRAD_TOL, 1e-5, True),
+    "qwen3-30b-a3b": ("qwen3-30b-a3b", 16, GRAD_TOL, 1e-5, True),
+    "pixtral-12b": ("pixtral-12b", 16, GRAD_TOL, 1e-5, True),
+    "llama3.1-8b": ("llama3.1-8b", 16, GRAD_TOL, 1e-5, True),
+    "phi4-mini-3.8b": ("phi4-mini-3.8b", 16, GRAD_TOL, 1e-5, True),
+    "mistral-large-123b": ("mistral-large-123b", 16, GRAD_TOL, 1e-5, True),
+    "qwen1.5-110b": ("qwen1.5-110b", 16, GRAD_TOL, 1e-5, True),
+    # past the reduced model's attention window of 64
+    "recurrentgemma-2b@200": ("recurrentgemma-2b", 200, GRAD_TOL, 1e-5, True),
 }
 
 
@@ -95,8 +106,7 @@ def _t(tree):
 def trained(request):
     """Both packages' gradients of one batch and one train step from the
     same weights."""
-    arch = request.param
-    s, gtol, ntol, dropless = ARCHS[arch]
+    arch, s, gtol, ntol, dropless = ARCHS[request.param]
     cfg_j, cfg_t = j_get_config(arch).reduced(), get_config(arch).reduced()
     jm = j_build(cfg_j, remat_policy="dots", moe_dropless=dropless)
     tree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
@@ -291,30 +301,20 @@ def test_rglru_function_with_one_output_unused():
         assert all(torch.equal(x, y) for x, y in zip(g, gp))
 
 
-def test_wkv6_refuses_gradients_on_a_device_tensor_and_stays_differentiable_on_cpu():
-    """The device branch (a meta tensor stands in for CUDA here) raises
-    NO_BACKWARD under gradients, naming the ROADMAP item; on CPU tensors the
-    plain version carries the gradient."""
+def test_wkv6_under_gradients_goes_through_its_function_on_a_device_tensor():
+    """The device branch (a meta tensor stands in for CUDA here) under
+    gradients runs Wkv6Scan's forward, which takes the kernels' checks (the
+    meta tensors fail the CUDA-device one, past where the wrapper once
+    refused); under no_grad the same checks run outside the Function."""
     shapes = [(1, 3, 2, 64)] * 4 + [(2, 64), (1, 2, 64, 64)]
     metas = [torch.zeros(s, device="meta", requires_grad=i == 0) for i, s in enumerate(shapes)]
-    with pytest.raises(RuntimeError, match="ROADMAP.md") as err:
+    with pytest.raises(ValueError, match="CUDA device") as err:
         wkv6(*metas)
-    assert str(err.value) == NO_BACKWARD and "backward kernel" in NO_BACKWARD
-    g = torch.Generator().manual_seed(0)
-    cpu = [torch.rand(s, generator=g, requires_grad=True) for s in shapes]
-    y, s_last = wkv6(*cpu)
-    grads = torch.autograd.grad(y.sum() + s_last.sum(), cpu)
-    assert all(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0 for x in grads)
-
-
-def test_wkv6_without_gradients_passes_the_refusal():
-    """Under no_grad the device branch goes on to its own checks (here the
-    meta tensors' missing data pointer, past NO_BACKWARD)."""
-    shapes = [(1, 3, 2, 64)] * 4 + [(2, 64), (1, 2, 64, 64)]
-    metas = [torch.zeros(s, device="meta", requires_grad=True) for s in shapes]
-    with torch.no_grad(), pytest.raises(Exception) as err:
+    frames = [(e.name, e.frame.f_globals.get("__name__")) for e in err.traceback]
+    assert ("forward", "repro_torch.kernels.rwkv6_scan") in frames
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA device") as err:
         wkv6(*metas)
-    assert str(err.value) != NO_BACKWARD
+    assert all(e.name != "forward" for e in err.traceback)
 
 
 def test_adamw_constants_are_the_references():

@@ -197,7 +197,9 @@ REFUSALS = {
     # name: (inputs, keyword arguments, the message)
     "v_strided": (lambda: _strided_v(_meta()), {}, "contiguous"),
     "f64": (lambda: _meta(dtype=torch.float64), {}, "f32"),
-    "dh_32": (lambda: _meta(dh=32), {}, "head size 64"),
+    # head size 32 is built with one chunked variant only
+    "dh_32": (lambda: _meta(dh=32), {"variant": (16, 64, 2)}, "no chunked CUDA kernel"),
+    "dh_48": (lambda: _meta(dh=48), {}, "head sizes"),
     "s_0": (lambda: _meta(s=0), {}, "unsupported shapes"),
     "chunk_64": (_meta, {"variant": (64, 32, 2)}, "no chunked CUDA kernel"),
     "cols_8": (_meta, {"variant": (16, 8, 1)}, "no chunked CUDA kernel"),
