@@ -14,6 +14,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --quant-only      # build + kv_quantize alone (any tree)
     python3 chip_smoke.py --promote-profile # build + a traced qwen3 serve's promotion (any tree)
     python3 chip_smoke.py --train-only      # build + the train phase alone
+    python3 chip_smoke.py --dist-only       # build + the dist phase alone
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the shapes
@@ -74,7 +75,14 @@ backward kernel against its plain version and autograd of the plain scan,
 both in f64, at S = 1-256 (bit for bit across two calls); one step of
 full-width rwkv6-7b cut to two layers against the CPU (which launches wkv6
 forward and backward); and the reduced rwkv6-7b through ``launch.train.run``
-with its loss falling.  After the dense phase, append-buffer decode
+with its loss falling.  Then the dist phase: four ranks spawned on the one
+card over gloo (the kernel library built by this process first) run
+``lse_decode_attention`` at qwen3-8b's attention width over a 4096-slot
+cache sharded 1024 slots a rank with a 16-slot tail on rank 0, each rank's
+partial through ``flash_decode_partials`` (the combine kernel's partials
+mode), held to one-process ``flash_decode`` over [cache || tail] and to
+f32, with a shard and a row that see no slot; and ``error_feedback_psum``
+over the ranks, equal to their run on host tensors.  After the dense phase, append-buffer decode
 (``Model.decode_step_append``) on full-width qwen3-8b over a 2048-token
 prefix against ``decode_step`` on the same tokens; in the family phase,
 qwen3-30b-a3b's ``moe_groups`` and einsum-dispatch checks.  The
@@ -1649,7 +1657,7 @@ RWKV_KERNELS = ("wkv6", "wkv6_step")
 
 def counters():
     """{name: (wrapper, its count attribute)}."""
-    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_partials
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize
     from repro_torch.kernels.kv_restore import kv_restore_scatter
@@ -1657,6 +1665,7 @@ def counters():
     from repro_torch.kernels.rwkv6_scan import wkv6
     return {"flash_prefill": (flash_prefill, "launches"),
             "flash_decode": (flash_decode, "launches"),
+            "flash_decode_partials": (flash_decode_partials, "launches"),
             "kv_restore": (kv_restore_scatter, "launches"),
             "kv_quantize": (kv_quantize, "launches"),
             "kv_dequantize": (kv_dequantize, "launches"),
@@ -3357,6 +3366,306 @@ def train_phase(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Dist phase: the sequence-sharded decode and the compressed all-reduce over
+# ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# qwen3-8b's attention at full width over a 4096-slot cache cut into 1024
+# slots a rank, a 16-slot tail on seq-rank 0
+DIST = dict(ranks=4, B=2, HQ=32, HKV=8, DH=128, SLOTS=4096, TAIL=16)
+DIST_EF = (4, 4096 * 256)        # error_feedback_psum: a (4096 x 256) f32 tensor a rank
+DIST_EF_REL = 0.02
+DIST_PARTIAL_REL = 1e-5          # m and l of the partials mode against its plain version
+
+
+def dist_inputs(case: str, dev):
+    """One lse case's whole inputs, the same on every rank (seed 5):
+    ``main`` (some slots empty, the tail half visible), ``empty_shard``
+    (rank 1's 1024 slots all empty) and ``nothing_visible`` (the query's
+    position below every slot's, the tail's too)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, hq, hkv, dh, s, t = (DIST[x] for x in ("B", "HQ", "HKV", "DH", "SLOTS", "TAIL"))
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = randn(b, 1, hq, dh), randn(b, s, hkv, dh), randn(b, s, hkv, dh)
+    tk, tv = randn(b, t, hkv, dh), randn(b, t, hkv, dh)
+    kpos = torch.arange(s, dtype=torch.int32, device=dev)
+    tkp = torch.arange(s, s + t, dtype=torch.int32, device=dev)
+    q_pos = s + t // 2
+    if case == "main":
+        kpos[100:140] = -1
+    elif case == "empty_shard":
+        kpos[s // 4:s // 2] = -1
+    else:
+        kpos += 100
+        tkp += 100
+        q_pos = 50
+    return q, k, v, kpos, (tk, tv, tkp), q_pos
+
+
+def dist_rank(rank: int, world: int, store: str, out_path: str):
+    """One rank of the dist phase (spawned): joins the group (gloo: the
+    ranks share one card), loads the kernel library the parent built, and
+    writes its readings to ``out_path`` (an ``error`` key on failure)."""
+    import torch
+    out = {"rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.distributed.collectives import lse_decode_attention
+        from repro_torch.distributed.constraints import use_mesh
+        from repro_torch.distributed.sharding import to_placements
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_partials,
+                                                      flash_decode_partials_plain,
+                                                      flash_decode_plain)
+        from repro_torch.launch.mesh import init_process_group
+        from repro_torch.training.compression import error_feedback_psum
+        out["backend"] = init_process_group(rank, world, store, device="cuda")
+        _build.lib()
+        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+        sl = DIST["SLOTS"] // world
+        scale = DIST["DH"] ** -0.5
+        kw = dict(scale=scale)
+
+        def shard(t, dim):
+            loc = t.narrow(dim, rank * sl, sl)
+            pl = [None] * 4 if t.dim() == 4 else [None]
+            pl[dim] = "model"
+            return DTensor.from_local(loc, mesh, to_placements(mesh, pl), run_check=False)
+
+        # the partials mode against its plain version on this rank's shard
+        # and tail (off the main path: the counts are zeroed below)
+        q, k, v, kpos, tail, q_pos = dist_inputs("main", dev)
+        ql = q[:, 0].contiguous()
+        kl = torch.cat([k[:, rank * sl:(rank + 1) * sl], tail[0]], dim=1)
+        vl = torch.cat([v[:, rank * sl:(rank + 1) * sl], tail[1]], dim=1)
+        kpl = torch.cat([kpos[rank * sl:(rank + 1) * sl],
+                         tail[2] if rank == 0 else torch.full_like(tail[2], -1)])
+        acc, m, l = flash_decode_partials(ql, kl, vl, kpl, q_pos, **kw)
+        pacc, pm, pl_ = flash_decode_partials_plain(ql, kl, vl, kpl, q_pos, **kw)
+        out_k, out_p = acc / l[..., None], pacc / pl_[..., None]
+        weighted = flash_decode_plain(ql.float(), kl.float(), vl.float().abs(), kpl, q_pos, **kw)
+        out["partials"] = dict(
+            m_rel=float(((m - pm).abs() / pm.abs().clamp_min(1e-30)).max()),
+            l_rel=float(((l - pl_).abs() / pl_.abs()).max()),
+            acc_max_abs_err=float((acc - pacc).abs().max()),
+            **rounding_check(out_k, out_p, weighted))
+        # a shard with no visible slot: the reference's finite mask
+        e_acc, e_m, e_l = flash_decode_partials(
+            ql, kl, vl, torch.full_like(kpl, -1), q_pos, **kw)
+        out["partials"]["empty"] = dict(
+            m=float(e_m.max()), l_min=float(e_l.min()), l_max=float(e_l.max()),
+            acc_err=float((e_acc - vl.float().sum(1).repeat_interleave(
+                DIST["HQ"] // DIST["HKV"], dim=1)).abs().max()))
+        torch.cuda.synchronize()
+
+        # the main path: lse_decode_attention over the sharded cache
+        cases = ("main", "empty_shard", "nothing_visible")
+        inputs = {c: dist_inputs(c, dev) for c in cases}
+        dist.barrier()
+        flash_decode_partials.launches = 0
+        flash_decode.launches = 0
+        res = {}
+        with use_mesh(mesh):
+            for c in cases:
+                q, k, v, kpos, tail, q_pos = inputs[c]
+                res[c] = lse_decode_attention(q, shard(k, 1), shard(v, 1), shard(kpos, 0),
+                                              q_pos, tail=tail, **kw)
+        torch.cuda.synchronize()
+        out["launches"] = {"flash_decode_partials": flash_decode_partials.launches,
+                           "flash_decode": flash_decode.launches}
+        out["cases"] = {}
+        for c in cases:
+            q, k, v, kpos, tail, q_pos = inputs[c]
+            o = res[c][:, 0]
+            kf, vf = torch.cat([k, tail[0]], 1), torch.cat([v, tail[1]], 1)
+            kpf = torch.cat([kpos, tail[2]])
+            single = flash_decode(q[:, 0].contiguous(), kf, vf, kpf, q_pos, **kw)
+            f32 = flash_decode_plain(q[:, 0].float(), kf.float(), vf.float(), kpf, q_pos, **kw)
+            r = dict(finite=bool(torch.isfinite(o).all()),
+                     err_vs_f32=float((o.float() - f32).abs().max()),
+                     single_err_vs_f32=float((single.float() - f32).abs().max()))
+            if c == "nothing_visible":
+                # every rank's slots and its copy of the tail weigh alike:
+                # the mean of V over S + ranks x T slots
+                want = ((v.float().sum(1) + world * tail[1].float().sum(1))
+                        / (DIST["SLOTS"] + world * DIST["TAIL"]))
+                want = want.repeat_interleave(DIST["HQ"] // DIST["HKV"], dim=1)
+                r["err_vs_semantics"] = float((o.float() - want).abs().max())
+            else:
+                weighted = flash_decode_plain(q[:, 0].float(), kf.float(), vf.float().abs(),
+                                              kpf, q_pos, **kw)
+                r.update(rounding_check(o, single, weighted))
+                r["f32_rounding_ratio"] = rounding_check(o, f32, weighted)["rounding_ratio"]
+            out["cases"][c] = r
+
+        # the call's wall time (host clock ended by a synchronise) and the
+        # combine's alone: gloo stages CUDA operands through the host
+        import statistics
+        q, k, v, kpos, tail, q_pos = inputs["main"]
+        ks, vs, kps = shard(k, 1), shard(v, 1), shard(kpos, 0)
+        walls, combines = [], []
+        from repro_torch.distributed.collectives import lse_combine
+        grp = mesh.get_group("model")
+        for _ in range(11):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_mesh(mesh):
+                lse_decode_attention(q, ks, vs, kps, q_pos, tail=tail, **kw)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            dist.barrier()
+            t0 = time.perf_counter()
+            lse_combine(acc, m, l, grp)
+            torch.cuda.synchronize()
+            combines.append((time.perf_counter() - t0) * 1e3)
+        out["lse_call_ms"] = statistics.median(walls)
+        out["combine_ms"] = statistics.median(combines)
+
+        # error_feedback_psum: on the card, and the same inputs on the host
+        g = torch.Generator(device=dev).manual_seed(9)
+        x = torch.randn(*DIST_EF, generator=g, device=dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        mean, resid = error_feedback_psum(x[rank])
+        torch.cuda.synchronize()
+        out["ef_ms"] = (time.perf_counter() - t0) * 1e3
+        exact = x.mean(0)
+        mean_h, resid_h = error_feedback_psum(x[rank].cpu())
+        out["ef"] = dict(
+            rel=float(torch.linalg.norm(mean - exact) / torch.linalg.norm(exact)),
+            equal_to_cpu=bool(torch.equal(mean.cpu(), mean_h)
+                              and torch.equal(resid.cpu(), resid_h)))
+
+        # the kernel timed alone on rank 0 at the per-rank shape (the other
+        # ranks wait at a barrier)
+        dist.barrier()
+        if rank == 0:
+            import torch.nn.functional as F
+            b, hq, hkv, dh = (DIST[x] for x in ("B", "HQ", "HKV", "DH"))
+            qs, kk, vv = ql, k[:, :sl].contiguous(), v[:, :sl].contiguous()
+            kp = kpos[:sl].contiguous()
+            scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+
+            def flush():
+                scratch.zero_()
+
+            def call():
+                return flash_decode_partials(qs, kk, vv, kp, q_pos, **kw)
+            a_, m_, l_ = call()
+            bms, by = bound(nbytes(qs, kk, vv, kp, a_, m_, l_), 4 * hq * dh * sl * b)
+            mask = (kp >= 0) & (kp <= q_pos)
+            kt = kk.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+            vt = vv.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+            ms = time_ms(call, flush=flush)
+            out["timing"] = dict(
+                shape=[b, sl, hkv, dh], ms=ms,
+                plain_ms=time_ms(lambda: flash_decode_partials_plain(qs, kk, vv, kp, q_pos, **kw),
+                                 flush=flush),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qs[:, :, None], kt, vt, attn_mask=mask[None], scale=scale), flush=flush),
+                bound_ms=bms, bound_by=by, bound_share=bms / ms,
+                kernels_us=kernels_us(call, flush), kernels_us_warm=kernels_us(call),
+                max_abs_err=out["partials"]["acc_max_abs_err"])
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:                       # reported by the parent, which fails
+        import traceback
+        out["error"] = traceback.format_exc()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def dist_phase(card: str) -> dict:
+    """``lse_decode_attention`` and ``error_feedback_psum`` over DIST["ranks"]
+    ranks spawned on the one card (gloo: NCCL takes one rank a card), the
+    kernel library built by the parent before the spawn.  Every rank's
+    partial through ``flash_decode_partials`` (its count zeroed just before
+    the three lse calls and read just after: one launch a call on every
+    rank); each case held to one-process ``flash_decode`` over [cache ||
+    tail] by ``rounding_check`` and to the f32 plain version (the case with
+    no visible slot to the reference's semantics, the mean of V over every
+    rank's slots); the partials mode to its plain version; the compressed
+    mean within DIST_EF_REL of the exact one and equal to the same ranks'
+    run on host tensors.  One ``{"dist": ...}`` line with the phase's
+    seconds."""
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    n = DIST["ranks"]
+    work = os.path.join(OUT_DIR, "dist")
+    os.makedirs(work, exist_ok=True)
+    store = os.path.join(work, "store")
+    if os.path.exists(store):
+        os.remove(store)
+    paths = [os.path.join(work, f"rank{r}.json") for r in range(n)]
+    for p in paths:
+        if os.path.exists(p):
+            os.remove(p)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank, args=(r, n, store, paths[r])) for r in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=400)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    missing = [r for r, p in enumerate(paths) if not os.path.exists(p)]
+    if missing:
+        raise AssertionError(f"dist: ranks {missing} wrote nothing "
+                             f"(exit codes {[p.exitcode for p in procs]})")
+    outs = []
+    for p in paths:
+        with open(p) as f:
+            outs.append(json.load(f))
+    for o in outs:
+        if "error" in o:
+            raise AssertionError(f"dist rank {o['rank']}:\n{o['error']}")
+    launches = [o["launches"]["flash_decode_partials"] for o in outs]
+    res = {"card": card, "torch": torch.__version__, "ranks": n, "backend": outs[0]["backend"],
+           "launches_by_rank": launches,
+           "flash_decode_launches_by_rank": [o["launches"]["flash_decode"] for o in outs],
+           "cases": outs[0]["cases"], "partials": [o["partials"] for o in outs],
+           "lse_call_ms_by_rank": [o["lse_call_ms"] for o in outs],
+           "combine_ms_by_rank": [o["combine_ms"] for o in outs],
+           "ef": [o["ef"] for o in outs], "ef_ms_by_rank": [o["ef_ms"] for o in outs],
+           "timing": outs[0]["timing"]}
+    res["dist_phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"dist": res}))
+    assert len({o["backend"] for o in outs}) == 1 and res["backend"] == "gloo", res["backend"]
+    assert launches == [3] * n, launches
+    assert res["flash_decode_launches_by_rank"] == [0] * n
+    for o in outs:
+        for c, r in o["cases"].items():
+            assert r["finite"], (o["rank"], c)
+            if c == "nothing_visible":       # f32 one-process: the mean over S + T slots
+                assert r["err_vs_semantics"] <= DECODE_TOL, (o["rank"], c, r)
+            else:
+                assert r["rounding_ratio"] <= 1.0 and r["f32_rounding_ratio"] <= 1.0, \
+                    (o["rank"], c, r)
+        pa = o["partials"]
+        assert pa["m_rel"] <= DIST_PARTIAL_REL and pa["l_rel"] <= DIST_PARTIAL_REL, pa
+        assert pa["rounding_ratio"] <= 1.0, pa
+        e = pa["empty"]
+        assert e["m"] == float(torch.tensor(-1e30)) and e["l_min"] == e["l_max"] == DIST["SLOTS"] // n + DIST["TAIL"], e
+        assert e["acc_err"] <= 1e-2, e
+        assert o["ef"]["rel"] < DIST_EF_REL and o["ef"]["equal_to_cpu"], o["ef"]
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3387,6 +3696,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="build, then run the train phase alone (its kernels line "
                          "holds rglru_scan's reversed call and wkv6's backward only)")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="build, then run the dist phase alone (ranks sharing the card; "
+                         "its kernels line holds flash_decode_partials only)")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)   # lines survive a kill
 
@@ -3421,11 +3733,14 @@ def main(argv=None) -> int:
     if args.train_only:
         print(json.dumps({"kernels": train_rows(train_phase(dev, card))}))
         return finish(spills)
+    if args.dist_only:
+        print(json.dumps({"kernels": [dist_row(dist_phase(card))]}))
+        return finish(spills)
 
     t0 = time.perf_counter()
     kres = kernel_phase(dev, card)
     print(json.dumps({"kernel_phase_s": time.perf_counter() - t0}))
-    sres = hres = rres = dres = ares = fres = tres = None
+    sres = hres = rres = dres = ares = fres = tres = xres = None
     if args.decode_sweep:
         decode_sweep(dev)
     if args.prefill_sweep:
@@ -3461,6 +3776,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         tres = train_phase(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        xres = dist_phase(card)
 
     fp = ("src/repro_torch/csrc/flash_prefill.cu",
           "src/repro/kernels/flash_prefill/kernel.py:81")
@@ -3527,6 +3845,8 @@ def main(argv=None) -> int:
                      "bound_share": k["bound_ms"] / k["ms"]})
     if tres is not None:
         rows += train_rows(tres)
+    if xres is not None:
+        rows.append(dist_row(xres))
     # own µs that no trace read: named, not left to pass as empty
     print(json.dumps({"kernels_us_missing": sorted(
         f"{name}.{key}" for name, k in kres.items() if isinstance(k, dict)
@@ -3557,6 +3877,21 @@ def train_rows(tres: dict) -> list:
              "launches": tres["rwkv_step"]["launches"].get("wkv6_backward", 0),
              "path": "train " + tres["rwkv_step"]["arch"],
              **{x: b[x] for x in keys}, "bound_share": b["bound_ms"] / b["ms"]}]
+
+
+def dist_row(xres: dict) -> dict:
+    """The kernels line's entry of the dist phase: flash_decode's partials
+    mode timed at the per-rank shape, launches from rank 0's lse calls."""
+    k = xres["timing"]
+    return {"name": "flash_decode_partials", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode/kernel.py:69",
+            "launches": xres["launches_by_rank"][0],
+            "launches_by_rank": xres["launches_by_rank"],
+            "path": f"lse_decode_attention over {xres['ranks']} ranks ({xres['backend']})",
+            **{x: k[x] for x in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "kernels_us", "kernels_us_warm", "shape")},
+            "bound_share": k["bound_ms"] / k["ms"]}
 
 
 def finish(spills: dict) -> int:

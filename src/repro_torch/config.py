@@ -2,11 +2,14 @@
 
 A copy of ``repro.config`` (the port imports nothing of ``repro``) holding
 what the port uses: the frozen :class:`ModelConfig` with its family
-sub-configs, and the :class:`HardwareProfile` type the cost model reads with
-the reference's hardware and I/O-bandwidth tables (``HARDWARE``,
-``IO_BANDWIDTHS``) that the simulation engine and the serve CLI take.
+sub-configs, the input shapes the sharding rules choose a mode by
+(:class:`ShapeConfig`, ``SHAPES``, :func:`supports_shape`), and the
+:class:`HardwareProfile` type the cost model reads with the reference's
+hardware and I/O-bandwidth tables (``HARDWARE``, ``IO_BANDWIDTHS``) that
+the simulation engine and the serve CLI take.
 Configs are pure data — models are built from them in
-``repro_torch.models.model``.
+``repro_torch.models.model`` and sharding rules in
+``repro_torch.distributed.sharding``.
 """
 from __future__ import annotations
 
@@ -303,6 +306,35 @@ class ModelConfig:
                                              tokenshift_lora_rank=8)
         kw.update(overrides)
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (every (arch x shape) is one cell of the sharding rules)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k requires sub-quadratic decode; everything else is universal
+    for the (decoder-only) registry."""
+    if shape.name == "long_500k":
+        return cfg.sub_quadratic
+    return True
 
 
 # ---------------------------------------------------------------------------

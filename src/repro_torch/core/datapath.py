@@ -137,12 +137,15 @@ class RestoreDatapath:
         self._last_secs: Optional[float] = None
 
     @classmethod
-    def for_channels(cls, io_channels: Optional[int] = None, *,
+    def for_channels(cls, io_channels: Optional[int] = None, mesh=None, *,
                      device="cuda", depth: int = 2):
-        """One stream per engine I/O channel, all on the one device: each
-        channel gets a copy queue of its own."""
-        n = max(1, io_channels or 1)
-        return cls([TransferStream(device, depth=depth) for _ in range(n)])
+        """One stream per engine I/O channel, channel c pinned to
+        ``io_channel_devices(mesh, io_channels)[c]``: round robin over the
+        mesh's cards (every card its own fetch queue), or with no mesh all
+        on ``device``, each channel a copy queue of its own."""
+        from repro_torch.distributed.sharding import io_channel_devices
+        devs = io_channel_devices(mesh, io_channels, device=device)
+        return cls([TransferStream(d, depth=depth) for d in devs])
 
     def stream_for(self, channel: int) -> TransferStream:
         return self.streams[channel % len(self.streams)]

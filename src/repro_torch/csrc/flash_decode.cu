@@ -49,7 +49,12 @@
 //    has m = -inf (no visible slot at all) takes what the plain version's
 //    finite -1e30 mask gives it: a uniform softmax over all S slots, the
 //    mean of V over [0, S) in f32.  Only such rows read V here, so the
-//    main path pays nothing for them.
+//    main path pays nothing for them.  In its partials mode
+//    (`flash_decode_partials_bf16`, a sequence-sharded decode's per-rank
+//    step) the combine stops before the division and writes each row's
+//    merged f32 partial (acc, m, l) for a combine across ranks, with the
+//    reference's finite mask for a row that sees no slot (m = -1e30, l = S,
+//    acc = the sum of V).
 // Left for later: one launch with a "last block combines" counter,
 // mma.sync for the scores, thread block clusters.
 #include "async_copy.cuh"
@@ -268,16 +273,26 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 
 // one block per (query head, batch row, 64 output columns): M = max_s m_s
 // and the weights' sum, then 16 groups of threads sum every 16th split's
-// acc over 4 columns each, and the groups meet in shared memory
+// acc over 4 columns each, and the groups meet in shared memory.
+// PARTIALS: write the row's merged partial instead of its output — acc
+// unnormalised in f32, m and l — with the reference's finite mask: a row
+// with no visible slot gets m = -1e30, l = S and acc = sum of V over the S
+// slots (what exp(-1e30 - -1e30) = 1 on every slot gives), so that a
+// combine across ranks weighs such a shard 0 next to one that saw a slot,
+// and never meets exp(-inf + inf).
 constexpr int FC_THREADS = 256;
 constexpr int FC_COLS = 64;
+constexpr float FD_NEG_INF = -1e30f;   // NEG_INF of the wrapper and the reference
 
+template <bool PARTIALS>
 __global__ void __launch_bounds__(FC_THREADS)
 flash_decode_combine_kernel(const float* __restrict__ m_part,
                             const float* __restrict__ l_part,
                             const float* __restrict__ acc_part,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out, int Hq, int DH,
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ acc_out, float* __restrict__ m_out,
+                            float* __restrict__ l_out, int Hq, int DH,
                             int n_split, int S, int Hkv, int G) {
   constexpr int NT = FC_THREADS, NW = NT / 32;
   constexpr int C4 = FC_COLS / 4;  // float4 columns of the block
@@ -324,11 +339,19 @@ flash_decode_combine_kernel(const float* __restrict__ m_part,
         const float4 x = sums[g][tid];
         u.x += x.x; u.y += x.y; u.z += x.z; u.w += x.w;
       }
-      const float w = 1.f / (float)S;
-      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
-          out + ((size_t)b * Hq + h) * DH + col0 + 4 * tid);
-      o[0] = __floats2bfloat162_rn(u.x * w, u.y * w);
-      o[1] = __floats2bfloat162_rn(u.z * w, u.w * w);
+      if constexpr (PARTIALS) {
+        *reinterpret_cast<float4*>(acc_out + ((size_t)b * Hq + h) * DH + col0 + 4 * tid) = u;
+        if (tid == 0 && blockIdx.z == 0) {
+          m_out[(size_t)b * Hq + h] = FD_NEG_INF;
+          l_out[(size_t)b * Hq + h] = (float)S;
+        }
+      } else {
+        const float w = 1.f / (float)S;
+        __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
+            out + ((size_t)b * Hq + h) * DH + col0 + 4 * tid);
+        o[0] = __floats2bfloat162_rn(u.x * w, u.y * w);
+        o[1] = __floats2bfloat162_rn(u.z * w, u.w * w);
+      }
     }
     return;
   }
@@ -360,13 +383,21 @@ flash_decode_combine_kernel(const float* __restrict__ m_part,
     float L = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) L += red[w];
-    L = fmaxf(L, 1e-30f);
     float4 t = sums[0][tid];
 #pragma unroll
     for (int g = 1; g < NG; ++g) {
       const float4 u = sums[g][tid];
       t.x += u.x; t.y += u.y; t.z += u.z; t.w += u.w;
     }
+    if constexpr (PARTIALS) {
+      *reinterpret_cast<float4*>(acc_out + ((size_t)b * Hq + h) * DH + col0 + 4 * tid) = t;
+      if (tid == 0 && blockIdx.z == 0) {
+        m_out[(size_t)b * Hq + h] = M;
+        l_out[(size_t)b * Hq + h] = L;
+      }
+      return;
+    }
+    L = fmaxf(L, 1e-30f);
     __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
         out + ((size_t)b * Hq + h) * DH + col0 + 4 * tid);
     o[0] = __floats2bfloat162_rn(t.x / L, t.y / L);
@@ -374,9 +405,12 @@ flash_decode_combine_kernel(const float* __restrict__ m_part,
   }
 }
 
+// acc_out null: the combine writes the normalised bf16 out; else the row's
+// merged partials (acc_out, m_out, l_out) and no out
 template <int DH, int GMAX>
 int launch(const void* q, const void* k, const void* v, const void* kpos,
-           void* out, float* m_part, float* l_part, float* acc_part, int B,
+           void* out, float* acc_out, float* m_out, float* l_out,
+           float* m_part, float* l_part, float* acc_part, int B,
            int S, int Hq, int Hkv, int q_pos, int window, float scale,
            int n_split, int split_slots, cudaStream_t stream) {
   const int G = Hq / Hkv, n_groups = (G + GMAX - 1) / GMAX;
@@ -394,10 +428,43 @@ int launch(const void* q, const void* k, const void* v, const void* kpos,
       q_pos, window, scale, n_split, split_slots);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_decode_combine_kernel<<<dim3(Hq, B, DH / FC_COLS), FC_THREADS, 0, stream>>>(
-      m_part, l_part, acc_part, (const __nv_bfloat16*)v, (__nv_bfloat16*)out, Hq, DH,
-      n_split, S, Hkv, G);
+  const dim3 grid(Hq, B, DH / FC_COLS);
+  if (acc_out == nullptr)
+    flash_decode_combine_kernel<false><<<grid, FC_THREADS, 0, stream>>>(
+        m_part, l_part, acc_part, (const __nv_bfloat16*)v, (__nv_bfloat16*)out,
+        nullptr, nullptr, nullptr, Hq, DH, n_split, S, Hkv, G);
+  else
+    flash_decode_combine_kernel<true><<<grid, FC_THREADS, 0, stream>>>(
+        m_part, l_part, acc_part, (const __nv_bfloat16*)v, nullptr, acc_out,
+        m_out, l_out, Hq, DH, n_split, S, Hkv, G);
   return (int)cudaGetLastError();
+}
+
+// the split plan's checks and the pick of a block's query heads (4, 10 or
+// 16 warps, the fewest that take all G: G 1-4 qwen1.5-0.5b, phi4-mini,
+// qwen3-8b, llama3.1-8b; 5-10 qwen1.5-110b, RecurrentGemma; 11-16
+// mistral-large; past 16 the heads of a KV head are cut into groups of 16)
+int dispatch(const void* q, const void* k, const void* v, const void* kpos,
+             void* out, float* acc_out, float* m_out, float* l_out, void* m_part,
+             void* l_part, void* acc_part, int B, int S, int Hq, int Hkv, int Dh,
+             int q_pos, int window, int n_split, int split_slots, float scale,
+             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (split_slots <= 0 || split_slots % FD_TILE || n_split <= 0 ||
+      (long)(n_split - 1) * split_slots >= S || (long)n_split * split_slots < S)
+    return (int)cudaErrorInvalidValue;
+  float *m = (float*)m_part, *l = (float*)l_part, *acc = (float*)acc_part;
+  const int G = Hq / Hkv;
+#define FD_ARGS q, k, v, kpos, out, acc_out, m_out, l_out, m, l, acc, B, S, Hq, \
+                Hkv, q_pos, window, scale, n_split, split_slots, st
+#define FD_PICK(DH) (G <= 4 ? launch<DH, 4>(FD_ARGS) \
+                     : G <= 10 ? launch<DH, 10>(FD_ARGS) : launch<DH, 16>(FD_ARGS))
+  if (Dh == 64) return FD_PICK(64);
+  if (Dh == 128) return FD_PICK(128);
+  if (Dh == 256) return FD_PICK(256);
+#undef FD_PICK
+#undef FD_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -413,24 +480,22 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  int Hq, int Hkv, int Dh, int q_pos, int window,
                                  int n_split, int split_slots, float scale,
                                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (split_slots <= 0 || split_slots % FD_TILE || n_split <= 0 ||
-      (long)(n_split - 1) * split_slots >= S || (long)n_split * split_slots < S)
-    return (int)cudaErrorInvalidValue;
-  float *m = (float*)m_part, *l = (float*)l_part, *acc = (float*)acc_part;
-  // a block holds 4 (G 1-4: qwen1.5-0.5b, phi4-mini, qwen3-8b, llama3.1-8b),
-  // 10 (G 5-10: qwen1.5-110b, RecurrentGemma) or 16 (G 11-16: mistral-large)
-  // query heads, a warp each: the fewest that take all G; past 16 the heads
-  // of a KV head are cut into groups of 16
-  const int G = Hq / Hkv;
-#define FD_ARGS q, k, v, kpos, out, m, l, acc, B, S, Hq, Hkv, q_pos, window, \
-                scale, n_split, split_slots, st
-#define FD_PICK(DH) (G <= 4 ? launch<DH, 4>(FD_ARGS) \
-                     : G <= 10 ? launch<DH, 10>(FD_ARGS) : launch<DH, 16>(FD_ARGS))
-  if (Dh == 64) return FD_PICK(64);
-  if (Dh == 128) return FD_PICK(128);
-  if (Dh == 256) return FD_PICK(256);
-#undef FD_PICK
-#undef FD_ARGS
-  return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, kpos, out, nullptr, nullptr, nullptr, m_part, l_part,
+                  acc_part, B, S, Hq, Hkv, Dh, q_pos, window, n_split, split_slots,
+                  scale, stream);
+}
+
+// The same split, then the combine in its partials mode: the f32 merged
+// partial of each (row, query head) over the S slots given — acc_out (B,
+// Hq, Dh) unnormalised, m_out and l_out (B, Hq) — for a combine across
+// ranks (repro_torch.distributed.collectives.lse_decode_attention).
+extern "C" int flash_decode_partials_bf16(const void* q, const void* k, const void* v,
+                                          const void* kpos, void* acc_out, void* m_out,
+                                          void* l_out, void* m_part, void* l_part,
+                                          void* acc_part, int B, int S, int Hq, int Hkv,
+                                          int Dh, int q_pos, int window, int n_split,
+                                          int split_slots, float scale, void* stream) {
+  return dispatch(q, k, v, kpos, nullptr, (float*)acc_out, (float*)m_out, (float*)l_out,
+                  m_part, l_part, acc_part, B, S, Hq, Hkv, Dh, q_pos, window, n_split,
+                  split_slots, scale, stream);
 }

@@ -44,6 +44,9 @@ _SIGNATURES = {
     # q, k, v, kpos, out, m, l, acc, B, S, Hq, Hkv, Dh, q_pos, window,
     # n_split, split_slots, scale, stream
     "flash_decode_bf16": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
+    # q, k, v, kpos, acc_out, m_out, l_out, m, l, acc, B, S, Hq, Hkv, Dh,
+    # q_pos, window, n_split, split_slots, scale, stream
+    "flash_decode_partials_bf16": [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P],
     # nf, caches*, staged*, scales*, chans*, S, T, t0, slot_lo, n_slots,
     # rows, cs, dtype, stream
     "kv_restore": [_I, _P, _P, _P, _P] + [_I] * 8 + [_P],
@@ -149,6 +152,20 @@ def stream_of(t: torch.Tensor) -> int:
 def check_launch(name: str, rc: int):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
+
+
+def refuse_dtensor(name: str, *tensors):
+    """A kernel is handed a rank's local shard, never a DTensor (it would
+    read one shard as the whole tensor): raise on one.  Wrappers call this
+    before any device check, so a DTensor off the card is refused too."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import DTensor
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name}: the CUDA kernel takes a rank's local tensor, "
+                            f"not a DTensor ({t.placements} on {t.device}); pass "
+                            "its to_local() explicitly")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, contiguous: bool = True):

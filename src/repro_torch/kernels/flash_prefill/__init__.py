@@ -89,6 +89,7 @@ def flash_prefill(q, k, v, kpos, q_offset: int, *, scale: float,
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, kpos, q_offset, scale=scale,
                                    window=window)
+    _build.refuse_dtensor("flash_prefill", q, k, v, kpos)
     # layout, types and shapes before device: refused whatever they lie on
     if not all(t.is_contiguous() for t in (q, k, v, kpos)):
         raise ValueError("flash_prefill: q, k, v and kpos must be contiguous "

@@ -122,6 +122,7 @@ def kv_quantize(x, *, plan: QuantPlan | None = None):
     :func:`quant_plan`'s choice for x (``chip_smoke.py --quant-sweep``)."""
     if x.device.type == "cpu":
         return kv_quantize_plain(x)
+    _build.refuse_dtensor("kv_quantize", x)
     _build.require_cuda("kv_quantize", x)
     if x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"kv_quantize: unsupported dtype {x.dtype}")
@@ -205,6 +206,8 @@ def kv_dequantize(q, scales, dtype=torch.bfloat16, *, chunk_size=None):
     dev = (q[0] if run else q).device
     if dev.type == "cpu":
         return kv_dequantize_plain(q, scales, dtype, chunk_size=chunk_size)
+    _build.refuse_dtensor("kv_dequantize", *(q if run else [q]),
+                          *(scales if run else [scales]))
     qs, ss = _dequant_views(q, scales, a, t, chans)
     _build.require_cuda("kv_dequantize", *ss, *qs, contiguous=False)
     _build.require_cuda("kv_dequantize", *ss, *([] if run else [q]))

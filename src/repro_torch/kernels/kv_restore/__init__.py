@@ -157,6 +157,7 @@ def kv_restore_scatter(caches, staged, scales=None, *, t0: int,
     if caches[0].device.type == "cpu":
         return kv_restore_plain(caches, staged, scales, t0=t0, slot_lo=slot_lo,
                                 n_slots=n_slots, chunk_size=chunk_size)
+    _build.refuse_dtensor("kv_restore", *caches, *staged, *(scales or []))
     nf = len(caches)
     _build.require_cuda("kv_restore", *caches, *staged, *(scales or []))
     a, s, _ = caches[0].shape

@@ -126,6 +126,7 @@ def rglru_scan(log_a, b, h0, *, variant=None, reverse: bool = False):
     counted apart in ``reverse_launches``."""
     if log_a.device.type == "cpu":
         return rglru_scan_plain(log_a, b, h0)
+    _build.refuse_dtensor("rglru_scan", log_a, b, h0)
     bsz, s, w = _shape(log_a, b, h0)
     _build.require_cuda("rglru_scan", log_a, b, h0)
     h = torch.empty_like(b)

@@ -111,6 +111,7 @@ def _check(name, r, k, v, w, u, s0, *more):
     of their shape) (B, S, H, Dh), u (H, Dh), s0 (B, H, Dh, Dh).  Returns
     (B, S, H, Dh)."""
     ins = (r, k, v, w, u, s0, *more)
+    _build.refuse_dtensor(name, *ins)
     if not all(t.is_contiguous() for t in ins):
         raise ValueError(f"{name}: the CUDA kernels take contiguous r, k, v, w, u "
                          "and s0")

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.constraints import ambient_mesh, axis_size, constrain
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models.layers import apply_rope, dense_init, rms_head_norm
@@ -144,9 +145,21 @@ def gqa_scores_naive(q, k, v, mask, scale):
 def gqa_flash(q, k, v, q_pos, k_pos, scale, window: int, block: int = FLASH_BLOCK):
     """Online-softmax attention over key blocks of ``block``: q (B,S,Hq,Dh),
     k (B,T,Hk,Dh), v (B,T,Hk,Dv), q_pos (B,S) and k_pos (B,T) int (k_pos < 0
-    marks an empty slot).  The reference's ``_gqa_flash`` less its mesh
-    constraints: the same running max, sum and accumulator in f32, the
+    marks an empty slot).  The reference's ``_gqa_flash``: the same
+    sharding constraints, running max, sum and accumulator in f32, the
     probabilities cast to q's dtype before P·V."""
+    # on a mesh: heads over "model" when they divide it, else queries over
+    # it with the KV replicated (the reference's constraints; no-ops off-mesh)
+    mesh = ambient_mesh()
+    msize = axis_size(mesh, "model") if mesh is not None else 1
+    if msize > 1 and q.shape[2] % msize == 0:
+        q = constrain(q, ("pod", "data"), None, "model", None)
+        k = constrain(k, ("pod", "data"), None, "model", None)
+        v = constrain(v, ("pod", "data"), None, "model", None)
+    elif msize > 1 and q.shape[1] > 1 and q.shape[1] % msize == 0:
+        q = constrain(q, ("pod", "data"), "model", None, None)
+        k = constrain(k, ("pod", "data"), None, None, None)
+        v = constrain(v, ("pod", "data"), None, None, None)
     b, s, hq, dh = q.shape
     t, hk, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hk

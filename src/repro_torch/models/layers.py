@@ -21,6 +21,8 @@ import torch.nn.functional as F
 def dense_init(shape, dtype, generator: torch.Generator, in_axis: int = 0):
     """Truncated-normal (at +-2 std) fan-in init: std = 1/sqrt(fan_in).
     Drawn by inverse CDF on the generator's device."""
+    if generator.device.type == "meta":           # shapes only (param_specs)
+        return torch.empty(shape, dtype=dtype, device="meta")
     std = 1.0 / math.sqrt(shape[in_axis])
     u = torch.rand(shape, generator=generator, device=generator.device)
     lo, hi = 0.5 * (1 + math.erf(-2.0 / math.sqrt(2))), 0.5 * (1 + math.erf(2.0 / math.sqrt(2)))

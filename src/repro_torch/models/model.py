@@ -47,6 +47,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.collectives import lse_decode_attention
+from repro_torch.distributed.constraints import ambient_mesh, axis_size, constrain
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
@@ -104,6 +106,13 @@ class Model:
                        for i in range(cfg.num_layers)]
         return p
 
+    def param_specs(self) -> dict:
+        """The parameter tree as ``meta`` tensors: shapes and dtypes, no
+        storage (the reference's ``jax.eval_shape`` of ``init``)."""
+        meta = Model(self.cfg, param_dtype=self.param_dtype,
+                     compute_dtype=self.compute_dtype, device="meta")
+        return meta.init(_MetaGenerator())
+
     def num_params(self, params) -> int:
         return sum(t.numel() for t in _leaves(params))
 
@@ -121,8 +130,10 @@ class Model:
         if cfg.input_mode == "tokens":
             # F.embedding, not indexing: on the CPU its backward sums a row's
             # gradients in a fixed order (indexing's scatter-add does not)
+            # on a mesh the table is gathered whole first (DTensor's
+            # vocab-parallel lookup does not take a 2-D mesh)
             x = F.embedding(inputs.to(self.device, torch.long),
-                            params["embed"]).to(self.compute_dtype)
+                            constrain(params["embed"], None, None)).to(self.compute_dtype)
         else:
             x = inputs.to(self.device, self.compute_dtype)
         if cfg.position == "sinusoidal":
@@ -141,18 +152,26 @@ class Model:
     # ------------------------------------------------------------------
     def _layer_full(self, p, kind, x, positions, states):
         """One layer, full sequence, from ``states`` (the recurrent and RWKV
-        kinds' carried state).  Returns (x', cache entry or new state, aux)."""
+        kinds' carried state).  Returns (x', cache entry or new state, aux).
+
+        Layer boundaries carry the reference's sharding constraints: batch
+        over ("pod", "data") and sequence over "model" (Megatron-SP style),
+        which pin the sharded run to gathering weights per layer rather
+        than replicating activations.  No-ops off-mesh."""
         cfg = self.cfg
         if kind == "attention":
-            return tfm.attention_layer_full(cfg, p, x, positions, dropless=self.moe_dropless,
-                                            moe_groups=self.moe_groups)
+            x, entry, aux = tfm.attention_layer_full(cfg, p, x, positions,
+                                                     dropless=self.moe_dropless,
+                                                     moe_groups=self.moe_groups)
+            entry = {f: constrain(a, ("pod", "data"), "model") for f, a in entry.items()}
+            return constrain(x, ("pod", "data"), "model", None), entry, aux
         if kind == "recurrent":
             conv, h0 = states
             x, conv, h = tfm.recurrent_layer_full(cfg, p, x, conv, h0)
-            return x, (conv, h), 0.0
+            return constrain(x, ("pod", "data"), "model", None), (conv, h), 0.0
         if kind == "rwkv":
             x, stm, scm, wkv = tfm.rwkv_layer_full(cfg, p, x, *states)
-            return x, (stm, scm, wkv), 0.0
+            return constrain(x, ("pod", "data"), "model", None), (stm, scm, wkv), 0.0
         raise ValueError(kind)
 
     def fresh_state(self, kind: str, b: int, dtype):
@@ -331,9 +350,13 @@ class Model:
         token's KV (or MLA latent) goes into slot ``tail_len`` of a small
         ``tail`` (``init_tail``: a cache of W slots, kpos -1 where empty),
         and every layer attends over [cache || tail], the two concatenated
-        with their kpos.  The reference's one-device branch; its
-        sequence-sharded branch (``lse_decode_attention`` over a mesh) is not
-        ported.  A uniform attention stack only, as the reference.
+        with their kpos.  Under an ambient mesh whose "model" dim is above 1
+        and does not divide ``num_kv_heads`` (a GQA cache sharded along its
+        sequence by ``cache_pspecs``), the attention is the reference's
+        sequence-sharded branch instead: ``lse_decode_attention``, each
+        rank's shard partial combined across ranks, the tail merged on
+        seq-rank 0, and the cache never gathered.  A uniform attention
+        stack only, as the reference.
 
         tokens (B,) (or (B, D) embeddings); pos: int.  The tail is written
         in place.  Returns (logits (B, V), tail)."""
@@ -353,10 +376,14 @@ class Model:
         """The layers in order (the reference's ``lax.scan`` over its
         stacked layers); ``pos`` is ``positions``' value on the host.  Each
         layer's attention reads a copy of its whole cache slot joined to its
-        tail slot, as the reference's concatenation does.  Returns (x,
+        tail slot, as the reference's concatenation does, or on a
+        sequence-sharded cache combines the ranks' partials.  Returns (x,
         tail)."""
         cfg = self.cfg
         scale = 1.0 / (cfg.qk_head_dim ** 0.5)
+        mesh = ambient_mesh()
+        msize = axis_size(mesh, "model") if mesh is not None else 1
+        seq_sharded = msize > 1 and cfg.num_kv_heads % msize != 0
         for i, p in enumerate(params["layers"]):
             _, slot = self.slots[i]
             h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
@@ -375,10 +402,17 @@ class Model:
                 kt, vt = tail["k"][slot], tail["v"][slot]
                 kt[:, tail_len] = k_new[:, 0].to(kt.dtype)
                 vt[:, tail_len] = v_new[:, 0].to(vt.dtype)
-                k_full = torch.cat([cache["k"][slot], kt], dim=1).to(q.dtype)
-                v_full = torch.cat([cache["v"][slot], vt], dim=1).to(q.dtype)
-                a = flash_decode(q[:, 0].contiguous(), k_full, v_full, kp, pos,
-                                 scale=scale, window=cfg.attn_window)
+                if seq_sharded:
+                    # (B, Hq, Dh) of partials cross the ranks, not the cache
+                    a = lse_decode_attention(
+                        q, cache["k"][slot].to(q.dtype), cache["v"][slot].to(q.dtype),
+                        cache["kpos"][slot], pos, scale=scale, window=cfg.attn_window,
+                        tail=(kt, vt, tail["kpos"][slot]))[:, 0]
+                else:
+                    k_full = torch.cat([cache["k"][slot], kt], dim=1).to(q.dtype)
+                    v_full = torch.cat([cache["v"][slot], vt], dim=1).to(q.dtype)
+                    a = flash_decode(q[:, 0].contiguous(), k_full, v_full, kp, pos,
+                                     scale=scale, window=cfg.attn_window)
                 a = a.reshape(*h.shape[:2], cfg.num_heads * cfg.head_dim)
                 a = a @ p["attn"]["wo"].to(h.dtype)
             x = x + a
@@ -397,6 +431,15 @@ class Model:
     def init_cache(self, batch: int, max_len: int, dtype=None):
         return init_cache(self.cfg, batch, max_len, dtype or self.compute_dtype,
                           self.device)
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator that reports the meta device: ``init`` then draws shapes
+    only."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
 
 
 REMAT_POLICIES = ("none", "full", "nothing", "dots")

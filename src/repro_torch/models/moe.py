@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, MoEConfig
+from repro_torch.distributed.constraints import constrain
 from repro_torch.models.layers import _gelu, apply_mlp, dense_init, init_mlp
 
 
@@ -106,11 +107,15 @@ def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
     pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
     slot = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0].long()           # (T·k,)
 
-    x_rep = x.repeat_interleave(k, dim=0)                                     # (T·k, D)
+    # on a mesh (the reference's constraints; no-ops off-mesh): pairs over
+    # the batch axes, the buffer's experts over "model" and slots over "data"
+    x_rep = constrain(x.repeat_interleave(k, dim=0), ("pod", "data"), None)  # (T·k, D)
     if not capacity:
         buf = torch.zeros((e, t, d), dtype=x.dtype, device=x.device)
         buf[flat_e, slot] = x_rep
-        y_rep = _expert_ffn(params, buf, activation)[flat_e, slot]          # (T·k, D)
+        buf = constrain(buf, "model", "data", None)
+        y_buf = constrain(_expert_ffn(params, buf, activation), "model", "data", None)
+        y_rep = y_buf[flat_e, slot]                                           # (T·k, D)
     else:
         # the reference's capacity path: pairs past their expert's cap slots
         # are dropped (zero in, zero out), the rest accumulate as its .add
@@ -119,7 +124,9 @@ def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
         at = slot.clamp(max=cap - 1)
         buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
         buf.index_put_((flat_e, at), torch.where(keep, x_rep, 0), accumulate=True)
-        y_rep = torch.where(keep, _expert_ffn(params, buf, activation)[flat_e, at], 0)
+        buf = constrain(buf, "model", "data", None)
+        y_buf = constrain(_expert_ffn(params, buf, activation), "model", "data", None)
+        y_rep = torch.where(keep, y_buf[flat_e, at], 0)
 
     # combine in the reference's order and dtype
     w = top_p.reshape(t * k, 1).to(y_rep.dtype)
@@ -153,10 +160,12 @@ def _moe_group_einsum(params: dict, x: torch.Tensor, moe: MoEConfig, activation:
     onehot_c = ((slot[..., None] == torch.arange(cap, device=x.device))
                 & keep[..., None]).to(x.dtype)                                   # (T,k,C)
     oe = onehot_e.to(x.dtype)
-    disp = torch.einsum("tke,tkc->tec", oe, onehot_c)
-    comb = torch.einsum("tke,tkc,tk->tec", oe, onehot_c, top_p.to(x.dtype))
-    buf = torch.einsum("tec,td->ecd", disp, x)
-    y = torch.einsum("tec,ecd->td", comb, _expert_ffn(params, buf, activation))
+    disp = constrain(torch.einsum("tke,tkc->tec", oe, onehot_c), ("pod", "data"), "model", None)
+    comb = constrain(torch.einsum("tke,tkc,tk->tec", oe, onehot_c, top_p.to(x.dtype)),
+                     ("pod", "data"), "model", None)
+    buf = constrain(torch.einsum("tec,td->ecd", disp, x), "model", "data", None)
+    y_buf = constrain(_expert_ffn(params, buf, activation), "model", "data", None)
+    y = torch.einsum("tec,ecd->td", comb, y_buf)
 
     me = probs.mean(dim=0)
     ce = onehot_e.sum(dim=(0, 1)) / (t * k)

@@ -9,6 +9,12 @@ crash mid-save never corrupts the latest checkpoint.  ``save`` copies every
 leaf to host memory before it returns, the writer thread of ``save_async``
 included: the optimizer updates the parameters in place, so a thread that
 read the tensors later would write a later step's values.
+
+DTensor leaves (a sharded run's parameters and optimizer state) are
+gathered whole to the host: every rank calls ``save``, rank 0 writes, and
+all of them return once the checkpoint is published.  ``restore`` gives a
+DTensor like-leaf back as a whole host tensor, which
+``distributed.elastic.replace_on_mesh`` places on any mesh.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _flatten(tree) -> list:
@@ -52,8 +59,18 @@ def _leaf_name(i: int) -> str:
     return f"leaf_{i:05d}.npy"
 
 
+def _is_dtensor(t) -> bool:
+    if not dist.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def _to_host(t) -> np.ndarray:
-    """A host copy that later in-place updates of ``t`` cannot reach."""
+    """A host copy that later in-place updates of ``t`` cannot reach (a
+    DTensor gathered whole: a collective)."""
+    if _is_dtensor(t):
+        t = t.full_tensor()
     if isinstance(t, torch.Tensor):
         return t.detach().to("cpu", copy=True).numpy()
     return np.array(t, copy=True)
@@ -68,7 +85,15 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree, *, blocking: bool = True):
-        host = [_to_host(t) for t in _flatten(tree)]        # device -> host now
+        leaves = _flatten(tree)
+        host = [_to_host(t) for t in leaves]                 # device -> host now
+        if any(_is_dtensor(t) for t in leaves):
+            # a sharded tree: every rank gathered it; rank 0 writes, and no
+            # rank returns before the checkpoint is published
+            if dist.get_rank() == 0:
+                self._write(step, host)
+            dist.barrier()
+            return
         if blocking:
             self._write(step, host)
         else:
@@ -126,7 +151,8 @@ class CheckpointManager:
 
     def restore(self, like_tree, step: Optional[int] = None):
         """Returns (step, tree) shaped like ``like_tree``, each leaf a tensor
-        on its like leaf's device and of its dtype."""
+        on its like leaf's device (a whole host tensor for a DTensor) and of
+        its dtype."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no complete checkpoint under {self.dir}")
@@ -136,5 +162,6 @@ class CheckpointManager:
         for i, (a, b) in enumerate(zip(host, like)):
             if tuple(a.shape) != tuple(b.shape):
                 raise ValueError(f"leaf {i} shape {a.shape} != expected {tuple(b.shape)}")
-        return step, _unflatten(like_tree, [torch.from_numpy(a).to(b.device, b.dtype)
-                                            for a, b in zip(host, like)])
+        return step, _unflatten(like_tree, [
+            torch.from_numpy(a).to("cpu" if _is_dtensor(b) else b.device, b.dtype)
+            for a, b in zip(host, like)])

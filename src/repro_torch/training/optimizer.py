@@ -54,7 +54,8 @@ def _zeros_like_tree(tree):
         return {k: _zeros_like_tree(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_zeros_like_tree(v) for v in tree]
-    return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
+    # zeros_like: a DTensor parameter's moments are DTensors placed as it is
+    return torch.zeros_like(tree, dtype=torch.float32)
 
 
 def init_opt_state(params) -> OptState:

@@ -13,6 +13,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed.constraints import constrain
 from repro_torch.models.model import Model, _leaves
 from repro_torch.training.optimizer import AdamWConfig, OptState, adamw_update
 
@@ -40,7 +41,9 @@ def lm_loss(model: Model, params, batch: dict):
     else:
         inputs, labels = batch["embeddings"], batch["labels"]
     logits, aux = model.forward(params, inputs)
-    logits = logits.float()
+    # on a mesh: batch over the batch axes, sequence over "model", the
+    # vocabulary whole (DTensor's gather along a sharded dim is not exact)
+    logits = constrain(logits.float(), ("pod", "data"), "model", None)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.to(logits.device, torch.long)[..., None])[..., 0]
     nll = (logz - gold).mean()
