@@ -14,6 +14,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --quant-only      # build + kv_quantize alone (any tree)
     python3 chip_smoke.py --promote-profile # build + a traced qwen3 serve's promotion (any tree)
     python3 chip_smoke.py --train-only      # build + the train phase alone
+    python3 chip_smoke.py --wkv-bwd-only    # build + wkv6's backward check alone (any tree)
     python3 chip_smoke.py --dist-only       # build + the dist phase alone
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
@@ -72,7 +73,8 @@ qwen1.5-0.5b through ``launch.train.run`` (ms a step, tokens/s, peak
 memory) and the reduced model's loss falling at the reference test's
 setting; a restart from a manifest after an injected failure; wkv6's
 backward kernel against its plain version and autograd of the plain scan,
-both in f64, at S = 1-256 (bit for bit across two calls); one step of
+both in f64, at S = 1-256 (bit for bit across two calls), and timed at S 64
+and at S 4096 (there held to the f64 plain version alone); one step of
 full-width rwkv6-7b cut to two layers against the CPU (which launches wkv6
 forward and backward); and the reduced rwkv6-7b through ``launch.train.run``
 with its loss falling.  Then the dist phase: four ranks spawned on the one
@@ -155,6 +157,14 @@ WKV6_F64_TOL = 1e-6
 # backward lands up to 5.6e-7 from f64 at S <= 256
 # (tests/test_torch_wkv6_backward.py); the bound is about three times that.
 WKV6_BWD_TOL = 2e-6
+# The backward kernel at the reference's train_4k sequence length, (1, 4096,
+# 64, 64) at the model's decays, s0 zero and ds_last None, against the plain
+# backward in f64 (max |kernel - f64| / max |f64| for each gradient).  Its
+# reason: what the earlier step-by-step backward kernel reached there on an
+# H100 (PERF.md), times at most 3: 2.08e-6 (du, a sum over 4096 steps; the
+# other gradients 4.2e-7 to 7.2e-7).
+WKV6_BWD_LONG = 4096
+WKV6_BWD_LONG_TOL = 6e-6
 
 
 def card_line() -> str:
@@ -200,18 +210,21 @@ def kernels_us(fn, flush=None, iters: int = 5, match="flash_decode"):
     """Device time per call of each kernel ``fn`` launches whose name holds
     ``match`` (one substring or a tuple of them; torch.profiler), after
     ``flush`` as in ``time_ms`` or, without one, with the inputs warm in L2
-    from the call before.  None (printed null, and listed on the
+    from the call before.  A trace that holds a kernel a number of times
+    that is not a multiple of ``iters`` lost some of its launches and is
+    tried again.  None (printed null, and listed on the
     ``kernels_us_missing`` line) when every try's trace came back without
-    them, so a missing reading never reads as an empty one."""
+    them or without some of their launches, so a missing reading never
+    reads as an empty or a short one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    out = {}
-    # a trace now and then comes back without the device's events: up to
-    # three tries
+    # a trace now and then comes back without the device's events, or
+    # without some launches: up to three tries
     for _ in range(3):
+        out, whole = {}, True
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 if flush is not None:
@@ -225,7 +238,8 @@ def kernels_us(fn, flush=None, iters: int = 5, match="flash_decode"):
             if any(m in e.key for m in ((match,) if isinstance(match, str) else match)) and us:
                 name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
                 out[name.removeprefix("void ").split("::")[-1].strip()] = us / iters
-        if out:
+                whole = whole and e.count % iters == 0
+        if out and whole:
             return out
     return None
 
@@ -3168,9 +3182,19 @@ def train_restart_check(dev, card: str) -> dict:
     return out
 
 
+def scratch_bytes(bsz: int, sl: int, h: int, dh: int):
+    """Bytes of scratch the backward wrapper allocates for one call (None on
+    a tree whose wrapper does not say)."""
+    from repro_torch.kernels import rwkv6_scan
+    shapes = getattr(rwkv6_scan, "bwd_scratch_shapes", None)
+    if shapes is None:
+        return None
+    return sum(4 * math.prod(x) for x in shapes(bsz, sl, h, dh).values())
+
+
 def wkv6_backward_check(dev, card: str) -> dict:
     """(f) wkv6's backward kernel at 64 heads of 64, B 2, s0 != 0, at S = 1,
-    16, 37 (a ragged last chunk of its 8-step chunks), 40, 64 and 256, at
+    16, 37 (a ragged last chunk of its 16-step chunks), 40, 64 and 256, at
     the model's decays
     (exp(-exp(N(-6, 1)))), strong decay (N(0, 1)) and decays with every 7th
     entry 0 (N(-1, 1)), with ds_last zero (None) and drawn: each gradient
@@ -3182,7 +3206,9 @@ def wkv6_backward_check(dev, card: str) -> dict:
     chunked kernel within WKV6_F64_TOL of f64, the one-step kernel's y within
     WKV6_Y_TOL and s_last bit for bit).  Then the call at the RWKV train
     shape (B 2, S 64, ds_last None, as in training), timed beside the plain
-    version, for the kernels line."""
+    version, for the kernels line; and the call at (1, WKV6_BWD_LONG, 64,
+    64), timed, its scratch bytes printed, and held to the plain version in
+    f64 within WKV6_BWD_LONG_TOL."""
     import torch
     from repro_torch.kernels.rwkv6_scan import (wkv6, wkv6_backward, wkv6_backward_plain,
                                                 wkv6_plain)
@@ -3191,14 +3217,14 @@ def wkv6_backward_check(dev, card: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(26)
     names = ("r", "k", "v", "w", "u", "s0")
 
-    def draw(sl, decay, h=64, dh=64):
-        r, k, v, dy = (torch.randn(bsz, sl, h, dh, generator=g, device=dev) for _ in range(4))
+    def draw(sl, decay, h=64, dh=64, b=bsz):
+        r, k, v, dy = (torch.randn(b, sl, h, dh, generator=g, device=dev) for _ in range(4))
         mu = {"model": -6.0, "strong": 0.0, "zeros": -1.0}[decay]
-        w = torch.exp(-torch.exp(torch.randn(bsz, sl, h, dh, generator=g, device=dev) + mu))
+        w = torch.exp(-torch.exp(torch.randn(b, sl, h, dh, generator=g, device=dev) + mu))
         if decay == "zeros":
             w.view(-1)[::7] = 0.0
         u = 0.1 * torch.randn(h, dh, generator=g, device=dev)
-        s0, ds = (torch.randn(bsz, h, dh, dh, generator=g, device=dev) for _ in range(2))
+        s0, ds = (torch.randn(b, h, dh, dh, generator=g, device=dev) for _ in range(2))
         return r, k, v, w, u, s0, dy, ds
 
     def rels(got, want):
@@ -3255,36 +3281,58 @@ def wkv6_backward_check(dev, card: str) -> dict:
                 if not ok:
                     raise AssertionError(f"wkv6 backward kernel: {case}")
                 del p64, ag, ins, y, last
-    # the call a train step makes (s_last unused: ds_last None)
-    h, dh, sl = 64, 64, RWKV_TRAIN["S"]
-    r, k, v, w, u, s0, dy, _ = draw(sl, "model")
-    s0 = torch.zeros_like(s0)
-    got = wkv6_backward(r, k, v, w, u, s0, dy)
+    # the call a train step makes (s_last unused: ds_last None, s0 zero): at
+    # the 2-layer rwkv6-7b step's shape (B 2, S 64) and at the reference's
+    # train_4k sequence length (B 1, S 4096, one sequence of a layer's call)
     scratch = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB
 
     def flush():
         scratch.zero_()
 
-    def call():
-        return wkv6_backward(r, k, v, w, u, s0, dy)
-    # per state element a step: the state rebuilt (3), the four products
-    # and their sums (8) and G's update (3)
-    bms, by = bound(nbytes(r, k, v, w, u, s0, dy, *got), 14 * bsz * sl * h * dh * dh,
-                    F32_FLOP_PER_S)
+    def timed(b, sl, plain: bool):
+        r, k, v, w, u, s0, dy, _ = draw(sl, "model", b=b)
+        s0 = torch.zeros_like(s0)
+        got = wkv6_backward(r, k, v, w, u, s0, dy)
+
+        def call():
+            return wkv6_backward(r, k, v, w, u, s0, dy)
+        # per state element a step: the state rebuilt (3), the four products
+        # and their sums (8) and G's update (3) -- the step-by-step walk's
+        # count, kept whatever the kernel implements so that timings compare
+        bms, by = bound(nbytes(r, k, v, w, u, s0, dy, *got), 14 * b * sl * 64 * 64 * 64,
+                        F32_FLOP_PER_S)
+        res = dict(ms=time_ms(call, flush=flush),
+                   kernels_us=kernels_us(call, flush, match="wkv6_bwd"),
+                   kernels_us_warm=kernels_us(call, match="wkv6_bwd"),
+                   bound_ms=bms, bound_by=by, library_ms=None,
+                   scratch_bytes=scratch_bytes(b, sl, 64, 64),
+                   shape=f"r, k, v, w, dy ({b},{sl},64,64) f32, u (64,64), "
+                         f"s0 ({b},64,64,64) zero, ds_last None")
+        if plain:
+            res["plain_ms"] = time_ms(lambda: wkv6_backward_plain(r, k, v, w, u, s0, dy),
+                                      flush=flush, iters=7)
+        res["bound_share"] = bms / res["ms"]
+        return res, (r, k, v, w, u, s0, dy), got
+
+    train, _, _ = timed(bsz, RWKV_TRAIN["S"], plain=True)
+    long, ins, got = timed(1, WKV6_BWD_LONG, plain=False)
+    # the long call against the plain backward in f64 (no autograd: its
+    # 4096-step graph is not needed to hold the kernel)
+    p64 = wkv6_backward_plain(*ins, dtype=torch.float64)
+    long.update(rel_err_vs_plain_f64=rels(got, p64),
+                max_abs_err=max(float((a.double() - b).abs().max()) for a, b in zip(got, p64)),
+                finite=all(bool(torch.isfinite(x).all()) for x in got),
+                tol=WKV6_BWD_LONG_TOL)
+    del p64
     out = dict(card=card, cases=cases, tol=WKV6_BWD_TOL,
                max_abs_err=max(c["max_abs_err"] for c in cases),
                max_rel_err=max(max(c["rel_err_vs_plain_f64"].values()) for c in cases),
                max_rel_err_vs_autograd=max(max(c["rel_err_vs_autograd_f64"].values())
                                            for c in cases),
-               ms=time_ms(call, flush=flush),
-               kernels_us=kernels_us(call, flush, match="wkv6_bwd"),
-               kernels_us_warm=kernels_us(call, match="wkv6_bwd"),
-               plain_ms=time_ms(lambda: wkv6_backward_plain(r, k, v, w, u, s0, dy),
-                                flush=flush, iters=7),
-               bound_ms=bms, bound_by=by, library_ms=None,
-               shape=f"r, k, v, w, dy ({bsz},{sl},{h},{dh}) f32, u ({h},{dh}), "
-                     f"s0 ({bsz},{h},{dh},{dh}), ds_last None")
+               **train, long=long)
     print(json.dumps({"train_wkv6_backward": out}))
+    if not (long["finite"] and max(long["rel_err_vs_plain_f64"].values()) <= WKV6_BWD_LONG_TOL):
+        raise AssertionError(f"wkv6 backward kernel at S {WKV6_BWD_LONG}: {long}")
     return out
 
 
@@ -3696,6 +3744,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="build, then run the train phase alone (its kernels line "
                          "holds rglru_scan's reversed call and wkv6's backward only)")
+    ap.add_argument("--wkv-bwd-only", action="store_true",
+                    help="build, then check and time wkv6's backward kernel alone "
+                         "(the train phase's check; runs on older trees too)")
     ap.add_argument("--dist-only", action="store_true",
                     help="build, then run the dist phase alone (ranks sharing the card; "
                          "its kernels line holds flash_decode_partials only)")
@@ -3730,6 +3781,9 @@ def main(argv=None) -> int:
     if args.promote_profile:
         promote_profile(dev, card)
         return 0
+    if args.wkv_bwd_only:
+        wkv6_backward_check(dev, card)
+        return finish(spills)
     if args.train_only:
         print(json.dumps({"kernels": train_rows(train_phase(dev, card))}))
         return finish(spills)
@@ -3859,8 +3913,8 @@ def train_rows(tres: dict) -> list:
     """The kernels line's entries of the train phase: rglru_scan's call over
     reversed time (the backward of its gradient Function), timed at the
     hybrid's train shape, launches from the hybrid's train step; and wkv6's
-    backward kernel, timed at the RWKV train shape, launches from the
-    2-layer rwkv6-7b train step."""
+    backward kernel, timed at the RWKV train shape (and, under ``long``, at
+    S 4096), launches from the 2-layer rwkv6-7b train step."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "kernels_us", "kernels_us_warm")
     k = tres["rglru_backward"]
@@ -3876,7 +3930,10 @@ def train_rows(tres: dict) -> list:
              "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:56",
              "launches": tres["rwkv_step"]["launches"].get("wkv6_backward", 0),
              "path": "train " + tres["rwkv_step"]["arch"],
-             **{x: b[x] for x in keys}, "bound_share": b["bound_ms"] / b["ms"]}]
+             **{x: b[x] for x in keys}, "bound_share": b["bound_ms"] / b["ms"],
+             "long": {x: b["long"][x] for x in ("shape", "ms", "bound_ms", "bound_by",
+                                                "kernels_us", "kernels_us_warm",
+                                                "scratch_bytes", "max_abs_err")}}]
 
 
 def dist_row(xres: dict) -> dict:

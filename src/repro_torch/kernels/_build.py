@@ -63,8 +63,8 @@ _SIGNATURES = {
     # r, k, v, w, u, s0, y, s_last, B, H, dh, stream
     "wkv6_step_f32": [_P] * 8 + [_I] * 3 + [_P],
     # r, k, v, w, u, s0, dy, ds_last (or null), dr, dk, dv, dw, du, ds0,
-    # starts, part, beta, du_part, B, S, H, dh, stream
-    "wkv6_bwd_f32": [_P] * 18 + [_I] * 4 + [_P],
+    # states, du_part, B, S, H, dh, stream
+    "wkv6_bwd_f32": [_P] * 16 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -10,17 +10,30 @@ and a chunked kernel for S >= 2 that walks the sequence in chunks of
 is built for head sizes 64 (rwkv6-7b) and 32 (its reduced config).
 
 The gradient runs through :class:`Wkv6Scan`, whose backward is a kernel of
-its own (``csrc/wkv6_bwd.cu``, :func:`wkv6_backward`): it walks the chunks
-forward once to save the state at each chunk start, then walks them in
-reverse, rebuilding each chunk's states step by step from its start and
-carrying the state's gradient G back, with G_{S-1} = ds_last:
+its own (``csrc/wkv6_bwd.cu``, :func:`wkv6_backward`), chunk-parallel over
+chunks of ``BWD_CHUNK`` steps.  A first launch carries the state S forward
+and its gradient G back (G after the last step = ds_last) from chunk to
+chunk, column block by column block, and saves them at the chunk
+boundaries; per chunk, with S_in before it, G_out after it and products of
+decays only (A_t, B_t: the decays before and after step t in the chunk;
+A_end: all of them):
 
-    dr_t = S_{t-1} dy_t + u k_t beta_t      (beta_t = v_t . dy_t)
+    S_out = diag(A_end) S_in  + sum_j (k_j B_j) v_j^T
+    G_in  = diag(A_end) G_out + sum_t (r_t A_t) dy_t^T       (ds0 = chunk 0's)
+
+A second launch then takes every chunk at once, each from its own rows,
+S_in and G_out: the gradients of the step-by-step walk, with
+beta_t = v_t . dy_t, S_{t-1} and G_t the states inside the chunk,
+
+    dr_t = S_{t-1} dy_t + u k_t beta_t
     dk_t = G_t v_t + u r_t beta_t
     dv_t = G_t^T k_t + (r_t . (u * k_t)) dy_t
     dw_t = rowsum(G_t * S_{t-1})
     du   = sum over batch and time of r_t k_t beta_t
-    G_{t-1} = diag(w_t) G_t + r_t dy_t^T     (ds0 = G_{-1})
+
+written through S_in dy^T, G_out v^T, v dy^T and the chunk's decay
+products, never through S_{t-1} or G_t (:func:`wkv6_backward_plain` spells
+them out); a last launch sums du over the chunks.
 
 :func:`wkv6` routes through :class:`Wkv6Scan` whenever a gradient is
 wanted, on the card and on the CPU alike (there the plain versions run,
@@ -43,8 +56,8 @@ CHUNKED_VARIANTS = ((16, 32, 2), (16, 32, 1), (16, 64, 2), (16, 16, 1), (32, 32,
 CHUNKED = (16, 32, 2)
 CHUNK = CHUNKED[0]           # steps a chunk
 CHUNKED_32 = (16, 32, 2)     # the chunked kernel's one build at head size 32
-BWD_CHUNK = 8                # csrc/wkv6_bwd.cu: steps a chunk of the backward
-BWD_THREADS = 512            # csrc/wkv6_bwd.cu: threads (state elements) a block
+BWD_CHUNK = 16               # csrc/wkv6_bwd.cu BC: steps a chunk of the backward
+BWD_THREADS = 256            # csrc/wkv6_bwd.cu BNT: threads a block of its chunk pass
 
 
 def wkv6_plain(r, k, v, w, u, s0, dtype=torch.float32):
@@ -64,6 +77,22 @@ def wkv6_plain(r, k, v, w, u, s0, dtype=torch.float32):
         y[:, t] = torch.einsum("bhk,bhkv->bhv", r_t, s) + bonus * v_t
         s = s * w[:, t, :, :, None] + k[:, t, :, :, None] * v_t[:, :, None, :]
     return y, s
+
+
+def _decays(wc):
+    """Decay products of a chunk's w (B, n, H, Dh): A[t] = prod_{q<t} w_q,
+    Bt[t] = prod_{t<q} w_q, A_end = prod_q w_q, and D (B, t, j, H, Dh) =
+    prod_{j<q<t} w_q below the diagonal, 0 on and above it."""
+    pre = torch.cumprod(wc, dim=1)                          # prod_{q <= t}
+    a = torch.cat([torch.ones_like(pre[:, :1]), pre[:, :-1]], dim=1)
+    suf = torch.cumprod(wc.flip(1), dim=1).flip(1)          # prod_{q >= t}
+    bt = torch.cat([suf[:, 1:], torch.ones_like(suf[:, :1])], dim=1)
+    n = wc.shape[1]
+    d = wc.new_zeros(wc.shape[0], n, n, *wc.shape[2:])
+    for t in range(1, n):
+        d[:, t, :t - 1] = d[:, t - 1, :t - 1] * wc[:, t - 1, None]
+        d[:, t, t - 1] = 1.0
+    return a, bt, pre[:, -1], d
 
 
 def wkv6_chunked_plain(r, k, v, w, u, s0, chunk: int = CHUNK):
@@ -87,20 +116,13 @@ def wkv6_chunked_plain(r, k, v, w, u, s0, chunk: int = CHUNK):
     for c0 in range(0, r.shape[1], chunk):
         rc, kc, vc, wc = (a[:, c0:c0 + chunk] for a in (r, k, v, w))
         n = rc.shape[1]
-        pre = torch.cumprod(wc, dim=1)                      # prod_{m <= t}
-        a = torch.cat([torch.ones_like(pre[:, :1]), pre[:, :-1]], dim=1)
-        suf = torch.cumprod(wc.flip(1), dim=1).flip(1)      # prod_{m >= j}
-        e = torch.cat([suf[:, 1:], torch.ones_like(suf[:, :1])], dim=1)
-        d = rc.new_zeros(rc.shape[0], n, n, *rc.shape[2:])  # (B, t, j, H, Dh)
-        for t in range(1, n):
-            d[:, t, :t - 1] = d[:, t - 1, :t - 1] * wc[:, t - 1, None]
-            d[:, t, t - 1] = 1.0
+        a, e, a_end, d = _decays(wc)
         scores = torch.einsum("bthi,btjhi,bjhi->bhtj", rc, d, kc)
         bonus = (rc * u[None, None] * kc).sum(-1, keepdim=True)
         y[:, c0:c0 + n] = (torch.einsum("bthi,bhiv->bthv", rc * a, s)
                            + torch.einsum("bhtj,bjhv->bthv", scores, vc)
                            + bonus * vc)
-        s = (pre[:, -1, :, :, None] * s
+        s = (a_end[..., None] * s
              + torch.einsum("bjhi,bjhv->bhiv", kc * e, vc))
     return y, s
 
@@ -176,46 +198,75 @@ wkv6.backward_launches = 0       # calls of the backward kernel (apart from thos
 def wkv6_backward_plain(r, k, v, w, u, s0, dy, ds_last=None, dtype=torch.float32,
                         chunk: int = BWD_CHUNK):
     """The backward kernel's algorithm in plain torch, in ``dtype`` (tests
-    and ``chip_smoke.py``; nothing on the card's path calls it): the state
-    at each chunk start from a forward walk, then the chunks in reverse,
-    each chunk's states S_{t-1} rebuilt step by step from its start (the
-    forward's product, product, sum), and the steps of the module docstring
-    from the chunk's last step down.  ``ds_last`` None is a zero gradient.
-    Returns (dr, dk, dv, dw, du, ds0) in ``dtype``."""
+    and ``chip_smoke.py``; nothing on the card's path calls it), chunks of
+    ``chunk`` steps from the call's first step.  The state at each chunk
+    start from a forward walk over chunks, the state's gradient at each chunk
+    end from a reverse walk (the module docstring's S_out and G_in), then
+    every chunk on its own from those two and its rows (per row i,
+    elementwise; D[t, j] = prod_{j<q<t} w_q, F[t, m] = D[m, t]):
+
+        SdY = S_in dy_t   GV = G_out v_t   VdY[j, t] = v_j . dy_t
+        dr_t = A_t SdY_t + sum_{j<t} D[t,j] k_j VdY[j,t] + u k_t beta_t
+        dk_t = B_t GV_t  + sum_{m>t} F[t,m] r_m VdY[t,m] + u r_t beta_t
+        dv_t = G_out^T (k_t B_t) + sum_{m>t} P[m,t] dy_m + bonus_t dy_t,
+               P[m,t] = sum_i r_m[i] F[t,m,i] k_t[i]
+        dw_t = A_t B_t <G_out[i], S_in[i]> + A_t sum_{m>t} F[t,m] r_m SdY_m
+               + B_t sum_{j<t} D[t,j] k_j GV_j + sum_{j<t} D[t,j] k_j X[t,j],
+               X[t,j] = sum_{m>t} F[t,m] r_m VdY[j,m]
+
+    No factor divides by w.  ``ds_last`` None is a zero gradient.  Returns
+    (dr, dk, dv, dw, du, ds0) in ``dtype``."""
     r, k, v, w, dy = (a.to(dtype) for a in (r, k, v, w, dy))
     u, s = u.to(dtype), s0.to(dtype)
     n = r.shape[1]
-
-    def step(s_, t):
-        return s_ * w[:, t, :, :, None] + k[:, t, :, :, None] * v[:, t, :, None, :]
-
+    bounds = [(c0, min(c0 + chunk, n)) for c0 in range(0, n, chunk)]
+    decays = [_decays(w[:, c0:c1]) for c0, c1 in bounds]
     starts = []
-    for c0 in range(0, n, chunk):
+    for (c0, c1), (_a, bt, a_end, _d) in zip(bounds, decays):
         starts.append(s)
-        if c0 + chunk < n:
-            for t in range(c0, c0 + chunk):
-                s = step(s, t)
-    g = torch.zeros_like(s) if ds_last is None else ds_last.to(dtype).clone()
-    beta = (v * dy).sum(-1, keepdim=True)                    # (B, S, H, 1)
-    bonus = (r * u * k).sum(-1, keepdim=True)
+        s = (a_end[..., None] * s
+             + torch.einsum("bjhi,bjhx->bhix", k[:, c0:c1] * bt, v[:, c0:c1]))
+    g = torch.zeros_like(s) if ds_last is None else ds_last.to(dtype)
+    ends = [None] * len(bounds)
+    for ci in reversed(range(len(bounds))):
+        (c0, c1), (a, _bt, a_end, _d) = bounds[ci], decays[ci]
+        ends[ci] = g
+        g = (a_end[..., None] * g
+             + torch.einsum("bthi,bthx->bhix", r[:, c0:c1] * a, dy[:, c0:c1]))
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
-    for ci in reversed(range(len(starts))):
-        c0 = ci * chunk
-        c1 = min(c0 + chunk, n)
-        hist = [starts[ci]]
-        for t in range(c0, c1 - 1):
-            hist.append(step(hist[-1], t))
-        for t in reversed(range(c0, c1)):
-            sp = hist[t - c0]
-            dr[:, t] = (torch.einsum("bhij,bhj->bhi", sp, dy[:, t])
-                        + u * k[:, t] * beta[:, t])
-            dk[:, t] = (torch.einsum("bhij,bhj->bhi", g, v[:, t])
-                        + u * r[:, t] * beta[:, t])
-            dv[:, t] = torch.einsum("bhi,bhij->bhj", k[:, t], g) + bonus[:, t] * dy[:, t]
-            dw[:, t] = (g * sp).sum(-1)
-            g = g * w[:, t, :, :, None] + r[:, t, :, :, None] * dy[:, t, :, None, :]
-    du = (r * k * beta).sum((0, 1))
+    du = torch.zeros_like(u)
+    for (c0, c1), (a, bt, _a_end, d), s_in, g_out in zip(bounds, decays, starts, ends):
+        rc, kc, vc, wc, dyc = (x[:, c0:c1] for x in (r, k, v, w, dy))
+        sdy = torch.einsum("bhix,bthx->bthi", s_in, dyc)       # (S_in dY^T)[i, t]
+        gv = torch.einsum("bhix,bthx->bthi", g_out, vc)        # (G_out V^T)[i, t]
+        vdy = torch.einsum("bjhx,bthx->bhjt", vc, dyc)         # v_j . dy_t
+        beta = torch.einsum("bthx,bthx->bth", vc, dyc)[..., None]
+        bonus = (rc * u * kc).sum(-1, keepdim=True)
+        kd = d * kc[:, None]                                   # [t, j] = D[t, j] k_j
+        rf = d.transpose(1, 2) * rc[:, None]                   # [t, m] = D[m, t] r_m
+        x = torch.einsum("btmhi,bhjm->btjhi", rf, vdy)         # X[t, j]
+        dr[:, c0:c1] = (a * sdy + torch.einsum("btjhi,bhjt->bthi", kd, vdy)
+                        + u * kc * beta)
+        dk[:, c0:c1] = (bt * gv + torch.einsum("btmhi,bhtm->bthi", rf, vdy)
+                        + u * rc * beta)
+        p = torch.einsum("btmhi,bthi->bhmt", rf, kc)           # P[m, t]
+        dv[:, c0:c1] = (torch.einsum("bhix,bthi->bthx", g_out, kc * bt)
+                        + torch.einsum("bhmt,bmhx->bthx", p, dyc) + bonus * dyc)
+        gs = (g_out * s_in).sum(-1)[:, None]                   # <G_out[i], S_in[i]>
+        dw[:, c0:c1] = (a * bt * gs + a * torch.einsum("btmhi,bmhi->bthi", rf, sdy)
+                        + bt * torch.einsum("btjhi,bjhi->bthi", kd, gv)
+                        + (kd * x).sum(2))
+        du = du + (rc * kc * beta).sum((0, 1))
     return dr, dk, dv, dw, du, g
+
+
+def bwd_scratch_shapes(bsz: int, s: int, h: int, dh: int) -> dict:
+    """The backward kernel's scratch (f32), nc = ceil(S / BWD_CHUNK):
+    ``states`` [0] the state at each chunk start (chunks 1 .. nc - 1
+    written), [1] its gradient at each chunk end (chunks 0 .. nc - 2);
+    ``du_part`` each chunk's part of du."""
+    nc = -(-s // BWD_CHUNK)
+    return {"states": (2, bsz, h, nc, dh, dh), "du_part": (bsz, nc, h, dh)}
 
 
 def wkv6_backward(r, k, v, w, u, s0, dy, ds_last=None):
@@ -229,16 +280,12 @@ def wkv6_backward(r, k, v, w, u, s0, dy, ds_last=None):
         _check("wkv6_backward", r, k, v, w, u, ds_last)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du, ds0 = torch.empty_like(u), torch.empty_like(s0)
-    nc = -(-s // BWD_CHUNK)
-    starts = torch.empty((bsz, h, nc, dh, dh), dtype=torch.float32, device=r.device)
-    part = torch.empty((3, dh * dh // BWD_THREADS) + tuple(r.shape), dtype=torch.float32,
-                       device=r.device)
-    beta = torch.empty((bsz, s, h), dtype=torch.float32, device=r.device)
-    du_part = torch.empty((bsz, h, dh), dtype=torch.float32, device=r.device)
+    states, du_part = (torch.empty(shape, dtype=torch.float32, device=r.device)
+                       for shape in bwd_scratch_shapes(bsz, s, h, dh).values())
     rc = _build.lib().wkv6_bwd_f32(
         *(t.data_ptr() for t in (r, k, v, w, u, s0, dy)),
         None if ds_last is None else ds_last.data_ptr(),
-        *(t.data_ptr() for t in (dr, dk, dv, dw, du, ds0, starts, part, beta, du_part)),
+        *(t.data_ptr() for t in (dr, dk, dv, dw, du, ds0, states, du_part)),
         bsz, s, h, dh, _build.stream_of(r))
     _build.check_launch("wkv6_backward", rc)
     wkv6.backward_launches += 1

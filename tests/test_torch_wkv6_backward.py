@@ -1,15 +1,16 @@
 """The wkv6 gradient: ``wkv6_backward_plain``, the backward CUDA kernel's
-algorithm in plain torch (chunk starts from a forward walk, each chunk's
-states rebuilt step by step from its start, the state's gradient carried
-back over the chunks in reverse), against autograd of ``wkv6_plain`` and
+algorithm in plain torch (the state at chunk starts from a forward walk over
+chunks, its gradient at chunk ends from a reverse walk, then every chunk on
+its own through products of decays), against autograd of ``wkv6_plain`` and
 ``jax.vjp`` of the reference's ``wkv_scan_ref``; ``Wkv6Scan``'s wiring on
-CPU tensors; the backward wrapper's checks.
+CPU tensors; the backward wrapper's checks and constants.
 
 Inputs as ``tests/test_torch_wkv6.py`` draws them: r, k, v, dy ~ N(0, 1),
 w = exp(-exp(N(mu, 1))) with every 997th entry 0 (mu = -6, the model's
 ``decay_base``, and mu = 0, strong decay), u ~ 0.1 N(0, 1), s0 and ds_last
-~ N(0, 1); S = 1, 16 (two whole chunks of BWD_CHUNK = 8), 37 (a ragged
-last chunk), 40 and 64.
+~ N(0, 1); S = 1, 16 (one whole chunk of BWD_CHUNK = 16), 37 (a ragged
+last chunk), 40 and 64; head sizes 64 and 32; chunks of 1, 3, 16, 64 and
+100 steps at S = 64.
 
 Tolerances, each ``max |got - want| <= tol * max |want|`` per gradient:
 F64_TOL = 1e-12 for the plain backward in f64 against autograd of the f64
@@ -18,6 +19,9 @@ scan (the same products in other orders: measured below 1e-15); REF_TOL =
 scan (each lands up to 5.6e-7 from the f64 answer at S <= 256); F32_TOL =
 1e-6 for ``Wkv6Scan`` against autograd of the f32 plain scan.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -27,9 +31,10 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.models.rwkv6 import wkv_scan_ref  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import (BWD_CHUNK, Wkv6Scan, wkv6,  # noqa: E402
-                                            wkv6_backward, wkv6_backward_plain,
-                                            wkv6_plain)
+from repro_torch.kernels import rwkv6_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (BWD_CHUNK, BWD_THREADS, Wkv6Scan,  # noqa: E402
+                                            bwd_scratch_shapes, wkv6, wkv6_backward,
+                                            wkv6_backward_plain, wkv6_plain)
 
 F64_TOL = 1e-12
 REF_TOL = 2e-6
@@ -38,16 +43,16 @@ H, DH = 2, 64
 NAMES = ("r", "k", "v", "w", "u", "s0")
 
 
-def _inputs(s, mu, seed=0, b=2):
+def _inputs(s, mu, seed=0, b=2, dh=DH):
     """r, k, v, w, u, s0, dy, ds_last as numpy f32."""
     rng = np.random.default_rng(seed)
-    r, k, v = (rng.standard_normal((b, s, H, DH)).astype(np.float32) for _ in range(3))
-    w = np.exp(-np.exp(rng.standard_normal((b, s, H, DH)) + mu)).astype(np.float32)
+    r, k, v = (rng.standard_normal((b, s, H, dh)).astype(np.float32) for _ in range(3))
+    w = np.exp(-np.exp(rng.standard_normal((b, s, H, dh)) + mu)).astype(np.float32)
     w.reshape(-1)[::997] = 0.0
-    u = (0.1 * rng.standard_normal((H, DH))).astype(np.float32)
-    s0 = rng.standard_normal((b, H, DH, DH)).astype(np.float32)
-    dy = rng.standard_normal((b, s, H, DH)).astype(np.float32)
-    ds_last = rng.standard_normal((b, H, DH, DH)).astype(np.float32)
+    u = (0.1 * rng.standard_normal((H, dh))).astype(np.float32)
+    s0 = rng.standard_normal((b, H, dh, dh)).astype(np.float32)
+    dy = rng.standard_normal((b, s, H, dh)).astype(np.float32)
+    ds_last = rng.standard_normal((b, H, dh, dh)).astype(np.float32)
     return r, k, v, w, u, s0, dy, ds_last
 
 
@@ -106,6 +111,51 @@ def test_backward_plain_matches_the_reference_vjp(s, mu):
     got = wkv6_backward_plain(*(_t(a) for a in (r, k, v, w, u, s0, dy, ds_last)))
     for name, g, wt in zip(NAMES, got, want):
         assert _rel(g, np.asarray(wt)) <= REF_TOL, name
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 16, 64, 100])
+@pytest.mark.parametrize("mu", [-6.0, 0.0])
+def test_backward_plain_is_autograd_of_the_scan_at_any_chunk(chunk, mu):
+    """Chunks of 1 step, 3 (a ragged last chunk at S = 64), 16, 64 (one
+    chunk) and 100 (one chunk longer than the call): in f64 every gradient
+    within F64_TOL of autograd of the f64 scan, with zeros in w, s0 and
+    ds_last drawn."""
+    r, k, v, w, u, s0, dy, ds_last = _inputs(64, mu, seed=300 + chunk - int(mu))
+    assert (w == 0).any()
+    want = _autograd((r, k, v, w, u, s0), dy, ds_last, torch.float64)
+    got = wkv6_backward_plain(*(_t(a) for a in (r, k, v, w, u, s0, dy, ds_last)),
+                              dtype=torch.float64, chunk=chunk)
+    for name, g, wt in zip(NAMES, got, want):
+        assert _rel(g, wt) <= F64_TOL, (name, chunk)
+
+
+@pytest.mark.parametrize("mu", [-6.0, 0.0])
+def test_backward_plain_at_head_size_32_matches_the_reference_vjp(mu):
+    """Head size 32 (the reduced rwkv6-7b's, which trains on the card) at S
+    = 37: the f32 plain backward within REF_TOL of ``jax.vjp`` of the
+    reference's scan."""
+    r, k, v, w, u, s0, dy, ds_last = _inputs(37, mu, seed=500, dh=32)
+    _, vjp = jax.vjp(wkv_scan_ref, *(jnp.asarray(a) for a in (r, k, v, w, u, s0)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(ds_last)))
+    got = wkv6_backward_plain(*(_t(a) for a in (r, k, v, w, u, s0, dy, ds_last)))
+    for name, g, wt in zip(NAMES, got, want):
+        assert g.shape == tuple(wt.shape), name
+        assert _rel(g, np.asarray(wt)) <= REF_TOL, name
+
+
+def test_kernel_constants_and_scratch_match_the_wrapper():
+    """The chunk and thread counts ``csrc/wkv6_bwd.cu`` is compiled with
+    (its BC and BNT) are the wrapper's BWD_CHUNK and BWD_THREADS; the
+    scratch the wrapper allocates at (1, 4096, 64, 64) is the note's: the
+    state and its gradient at every chunk boundary, and du's part of every
+    chunk."""
+    src = (Path(rwkv6_scan.__file__).resolve().parents[2] / "csrc" / "wkv6_bwd.cu").read_text()
+    consts = {name: int(val) for name, val in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (consts["BC"], consts["BNT"]) == (BWD_CHUNK, BWD_THREADS)
+    assert f"nc = ceil(S / {BWD_CHUNK})" in src
+    nc = -(-4096 // BWD_CHUNK)
+    assert bwd_scratch_shapes(1, 4096, 64, 64) == {"states": (2, 1, 64, nc, 64, 64),
+                                                   "du_part": (1, nc, 64, 64)}
 
 
 def test_backward_plain_chunks_cover_a_ragged_tail_and_all_zero_decay():
