@@ -16,6 +16,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --train-only      # build + the train phase alone
     python3 chip_smoke.py --wkv-bwd-only    # build + wkv6's backward check alone (any tree)
     python3 chip_smoke.py --dist-only       # build + the dist phase alone
+    python3 chip_smoke.py --dryrun-only     # build + the dryrun phase alone
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the shapes
@@ -83,8 +84,22 @@ card over gloo (the kernel library built by this process first) run
 cache sharded 1024 slots a rank with a 16-slot tail on rank 0, each rank's
 partial through ``flash_decode_partials`` (the combine kernel's partials
 mode), held to one-process ``flash_decode`` over [cache || tail] and to
-f32, with a shard and a row that see no slot; and ``error_feedback_psum``
-over the ranks, equal to their run on host tensors.  After the dense phase, append-buffer decode
+f32, with a shard and a row that see no slot; ``error_feedback_psum``
+over the ranks, equal to their run on host tensors; and one sharded
+``decode_step`` each of full-width qwen3-8b (2 layers: the cache's 8
+kv-heads over the ranks, ``flash_decode`` on 2 a rank), recurrentgemma-2b
+(3 layers: its one kv-head, so the cache along its sequence through
+``flash_decode_partials`` and the LSE combine, and the RG-LRU one-step
+kernel on 640 of 2560 lanes) and rwkv6-7b (2 layers: ``wkv6``'s one-step
+kernel on 16 of 64 heads) held to the step in one process (logits by
+``rounding_check``, the greedy token), each rank's launches and its
+kernels' local shapes asserted.  Last, the dryrun phase: steps of
+qwen3-8b (4 layers: decode at B 8 over 4096 slots, a 256-token chunk over
+3840), recurrentgemma-2b (3 layers) and rwkv6-7b (2 layers; a 256-token
+prefill and a decode step each) counted by ``repro_torch.launch.op_cost``
+on the card and traced on meta: dot_flops equal, the kernels' notes equal
+to their launches, every output's and wrapper's meta shapes equal to the
+card's.  After the dense phase, append-buffer decode
 (``Model.decode_step_append``) on full-width qwen3-8b over a 2048-token
 prefix against ``decode_step`` on the same tokens; in the family phase,
 qwen3-30b-a3b's ``moe_groups`` and einsum-dispatch checks.  The
@@ -96,6 +111,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -3418,6 +3434,166 @@ def train_phase(dev, card: str) -> dict:
 # Dist phase: the sequence-sharded decode and the compressed all-reduce over
 # ranks sharing the one card
 # ---------------------------------------------------------------------------
+# The dry run's counts: a step on the card against its trace on meta
+# ---------------------------------------------------------------------------
+
+# (name, arch, layers, step, B, length): "decode" one step at position length
+# over a cache of length + 1 slots (qwen3: 4096 slots), "chunk" a 256-token
+# prefill_chunk over length slots already there, "prefill" length tokens
+DRYRUN_CASES = (("qwen3_decode", "qwen3-8b", 4, "decode", 8, 4095),
+                ("qwen3_chunk", "qwen3-8b", 4, "chunk", 8, 3840),
+                ("hybrid_prefill", "recurrentgemma-2b", 3, "prefill", 2, 256),
+                ("hybrid_decode", "recurrentgemma-2b", 3, "decode", 2, 256),
+                ("rwkv_prefill", "rwkv6-7b", 2, "prefill", 2, 256),
+                ("rwkv_decode", "rwkv6-7b", 2, "decode", 2, 256))
+DRYRUN_CHUNK = 256
+# the model modules' names of the kernel wrappers a step reaches
+KERNEL_SITES = (("repro_torch.models.attention", "flash_decode"),
+                ("repro_torch.models.attention", "flash_prefill"),
+                ("repro_torch.distributed.collectives", "flash_decode_partials"),
+                ("repro_torch.models.rglru", "rglru_scan_grad"),
+                ("repro_torch.models.rwkv6", "wkv6"))
+
+
+def _flat_tensors(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    return [t for y in (x or []) for t in _flat_tensors(y)]
+
+
+@contextlib.contextmanager
+def kernel_spy(calls: dict):
+    """Record the first call of each model-side kernel wrapper: the wrapper,
+    its inputs (kept) and its outputs' shapes and dtypes."""
+    import importlib
+    undo = []
+    for mod_name, name in KERNEL_SITES:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, name)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            out = _fn(*a, **kw)
+            if _name not in calls:
+                calls[_name] = (_fn, a, kw, [(tuple(t.shape), str(t.dtype))
+                                             for t in _flat_tensors(out)])
+            return out
+        setattr(mod, name, spy)
+        undo.append((mod, name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in undo:
+            setattr(mod, name, fn)
+
+
+def dryrun_case(dev, arch: str, layers: int, step: str, bsz: int, length: int) -> dict:
+    """``op_cost.analyze`` of one step on the card (full width, ``layers``
+    deep, bf16 random weights from seed 0) and of the same step on meta:
+    dot_flops, the kernel notes against the launches read around the card
+    call, the step's outputs' shapes and dtypes, and each kernel wrapper's
+    meta route against its CUDA call at the step's shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_cost
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    slots = length + 1 if step == "decode" else length + DRYRUN_CHUNK
+
+    def build(device):
+        model = Model(cfg, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                      device=device)
+        if device == "meta":
+            params = model.param_specs()
+            tokens = torch.zeros(bsz, max(length, DRYRUN_CHUNK), dtype=torch.int32,
+                                 device="meta")
+        else:
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            tokens = torch.randint(0, cfg.vocab_size, (bsz, max(length, DRYRUN_CHUNK)),
+                                   generator=torch.Generator().manual_seed(1)).to(dev)
+        cache = None if step == "prefill" else model.init_cache(bsz, slots)
+
+        def run():
+            with torch.no_grad():
+                if step == "prefill":
+                    return model.prefill(params, tokens[:, :length])
+                if step == "chunk":
+                    return model.prefill_chunk(params, tokens[:, :DRYRUN_CHUNK], cache, length)
+                return model.decode_step(params, tokens[:, 0], cache, length)
+        return run
+
+    card_run, meta_run = build(dev), build("meta")
+    card_run()                                   # warm: the kernel library, cuBLAS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_run()
+    torch.cuda.synchronize()
+    card_plain_s = time.perf_counter() - t0
+    calls: dict = {}
+    zero_counters()
+    t0 = time.perf_counter()
+    with kernel_spy(calls):
+        card_out, card = op_cost.analyze(card_run)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counters().items() if v}
+    t0 = time.perf_counter()
+    meta_out, meta = op_cost.analyze(meta_run)
+    meta_s = time.perf_counter() - t0
+    # each wrapper's meta route at the card call's shapes (not on the path)
+    routes = {}
+    for name, (fn, args, kw, shapes) in calls.items():
+        margs = [torch.empty_like(a, device="meta") if isinstance(a, torch.Tensor) else a
+                 for a in args]
+        with torch.no_grad():
+            got = [(tuple(t.shape), str(t.dtype)) for t in _flat_tensors(fn(*margs, **kw))]
+        routes[name] = dict(cuda=shapes, meta=got, equal=got == shapes)
+    notes_as_launches = {
+        "flash_decode": launches.get("flash_decode", 0),
+        "flash_prefill": launches.get("flash_prefill", 0),
+        "rglru_scan": launches.get("rglru_scan", 0) + launches.get("rglru_scan_step", 0),
+        "wkv6": launches.get("wkv6", 0) + launches.get("wkv6_step", 0)}
+    notes_as_launches = {k: v for k, v in notes_as_launches.items() if v}
+    return dict(
+        arch=arch, layers=layers, step=step, B=bsz, length=length, slots=slots,
+        dot_flops_card=card["dot_flops"], dot_flops_meta=meta["dot_flops"],
+        dot_flops_equal=card["dot_flops"] == meta["dot_flops"],
+        notes_card=card["kernel_notes"], notes_meta=meta["kernel_notes"],
+        launches=launches, notes_equal_launches=(card["kernel_notes"] == notes_as_launches
+                                                 == meta["kernel_notes"]),
+        outputs_equal=[(tuple(t.shape), t.dtype) for t in _flat_tensors(card_out)]
+        == [(tuple(t.shape), t.dtype) for t in _flat_tensors(meta_out)],
+        routes=routes, routes_equal=all(r["equal"] for r in routes.values()),
+        collectives_card=card["collective_counts"],
+        card_s=card_s, card_plain_s=card_plain_s, meta_trace_s=meta_s)
+
+
+def dryrun_phase(dev, card: str) -> dict:
+    """Each DRYRUN_CASES step counted on the card and traced on meta
+    (``dryrun_case``): dot_flops equal exactly, the kernel notes equal to the
+    launches the counters read, the outputs' and each wrapper's meta route's
+    shapes and dtypes equal to the card's.  One ``{"dryrun": ...}`` line;
+    the seconds are host seconds (the card call's ended by a synchronise)."""
+    import torch
+    t0 = time.perf_counter()
+    cases = {}
+    for name, arch, layers, step, bsz, length in DRYRUN_CASES:
+        cases[name] = dryrun_case(dev, arch, layers, step, bsz, length)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res = {"card": card, "cases": cases, "dryrun_phase_s": time.perf_counter() - t0}
+    print(json.dumps({"dryrun": res}))
+    for name, c in cases.items():
+        if not (c["dot_flops_equal"] and c["notes_equal_launches"] and c["outputs_equal"]
+                and c["routes_equal"] and c["launches"]):
+            raise AssertionError(f"dryrun {name}: {c}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 # qwen3-8b's attention at full width over a 4096-slot cache cut into 1024
 # slots a rank, a 16-slot tail on seq-rank 0
@@ -3454,11 +3630,122 @@ def dist_inputs(case: str, dev):
     return q, k, v, kpos, (tk, tv, tkp), q_pos
 
 
+# sharded decode_step on (1, 4) against one process, full width cut in depth:
+# (name, arch, layers); B 2, a 64-token prefix in a 128-slot cache
+DIST_DECODE = (("qwen3_heads", "qwen3-8b", 2),
+               ("hybrid_sequence", "recurrentgemma-2b", 3),
+               ("rwkv_heads", "rwkv6-7b", 2))
+DIST_DECODE_SHAPE = dict(B=2, PREFIX=64, SLOTS=128)
+# The logits' bound (rounding_check): 2^-8 (layers + 1) |h| @ |unembed| + one
+# bf16 step, h the one-process final hidden state.  Each layer's sharded
+# output products (wo, w_down, w_out, w_o, cm_v) add the ranks' bf16 partial
+# sums in another order than one product over the whole inputs, a rounding
+# of up to one bf16 step of that layer's output carried on in the residual
+# stream; the final norm's output is rounded once more.  (A bound of one
+# rounding, 2^-8 |h| @ |unembed|, was exceeded 1.1-2.0 times by the reduced
+# configs on the CPU.)
+# launches each rank's step must make, and the local shapes its kernels take:
+# qwen3-8b's 8 kv-heads over 4 ranks (2 a rank, 8 of 32 query heads);
+# recurrentgemma-2b's one kv-head: the cache along its sequence (32 slots a
+# rank) through the partials and the LSE combine, its RG-LRU state along
+# the width (640 of 2560 lanes); rwkv6-7b's 64 wkv heads (16 a rank)
+DIST_DECODE_LAUNCHES = {"qwen3_heads": {"flash_decode": 2},
+                        "hybrid_sequence": {"flash_decode_partials": 1, "rglru_scan_step": 2},
+                        "rwkv_heads": {"wkv6_step": 2}}
+# (the first two tensors a wrapper takes: q and k, log_a and b, r and k)
+DIST_DECODE_LOCAL = {"qwen3_heads": {"flash_decode": [(2, 8, 128), (2, 128, 2, 128)]},
+                     "hybrid_sequence": {"flash_decode_partials": [(2, 10, 256), (2, 32, 1, 256)],
+                                         "rglru_scan_grad": [(2, 1, 640), (2, 1, 640)]},
+                     "rwkv_heads": {"wkv6": [(2, 1, 16, 64), (2, 1, 16, 64)]}}
+
+
+def place_local(tree, spec_tree, mesh):
+    """``tree``'s leaves (the same on every rank) as DTensors placed by
+    ``spec_tree``, each rank slicing its own shard: no collective."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.distributed.elastic import _flat
+    from repro_torch.distributed.sharding import _map_with_path, to_placements
+    specs = dict(_flat(spec_tree))
+
+    def put(path, t):
+        pl = to_placements(mesh, specs[path])
+        shape, off = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+        local = t[tuple(slice(o, o + n) for o, n in zip(off, shape))].contiguous()
+        return DTensor.from_local(local, mesh, pl, run_check=False)
+    return _map_with_path(put, tree)
+
+
+def sharded_decode_case(dev, mesh, arch: str, layers: int) -> dict:
+    """One decode_step of ``arch`` (full width, ``layers`` deep, bf16 weights
+    from seed 0 on every rank) on CUDA DTensors over ``mesh``, against the
+    same step in this process on plain tensors: the logits by
+    ``rounding_check``, the greedy token, this rank's launches
+    (counts from 0 just before the sharded step, read just after) and the
+    local shapes its kernels took."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.distributed.constraints import use_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.kvcache import grow_cache
+    from repro_torch.models.layers import apply_norm
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    b, pre, slots = (DIST_DECODE_SHAPE[x] for x in ("B", "PREFIX", "SLOTS"))
+    model = Model(cfg, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (b, pre),
+                           generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        last, cache = model.prefill(params, prompt)
+        cache = grow_cache(cfg, cache, slots)
+        tok = last.argmax(-1).to(torch.int32)
+        one, _ = model.decode_step(params, tok, copy.deepcopy(cache), pre)
+        positions = torch.full((b, 1), pre, dtype=torch.int32)
+        x = model.embed(params, tok[:, None], positions)
+        x, _ = model.stack_chunk(params, x, positions, copy.deepcopy(cache))
+        h = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)[:, 0]
+        table = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        weighted = h.float().abs() @ table.float().abs()
+    p_sh = place_local(params, shr.param_pspecs(model, "serve_tp"), mesh)
+    c_sh = place_local(cache, shr.cache_pspecs(model, mesh, b, slots), mesh)
+    t_sh = place_local(tok, shr.data_pspecs(cfg, mesh, "decode", b), mesh)
+    calls: dict = {}
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    with kernel_spy(calls), use_mesh(mesh), torch.no_grad():
+        logits, _ = model.decode_step(p_sh, t_sh, c_sh, pre)
+        logits = logits.full_tensor()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in read_counters().items() if v}
+    local = {name: [list(a.shape) for a in args if isinstance(a, torch.Tensor)][:2]
+             for name, (_fn, args, _kw, _shapes) in calls.items()}
+    r = dict(arch=arch, layers=layers, B=b, prefix=pre, slots=slots,
+             cache_specs={f: list(sp) for f, sp in shr.cache_pspecs(model, mesh, b, slots).items()},
+             launches=launches, local_shapes=local, step_ms=step_ms,
+             max_abs_logit_diff=float((logits.float() - one.float()).abs().max()),
+             max_abs_logit=float(one.float().abs().max()),
+             greedy_equal=bool(torch.equal(logits.argmax(-1), one.argmax(-1))),
+             **rounding_check(logits, one, (layers + 1) * weighted))
+    del model, params, cache, p_sh, c_sh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
 def dist_rank(rank: int, world: int, store: str, out_path: str):
     """One rank of the dist phase (spawned): joins the group (gloo: the
     ranks share one card), loads the kernel library the parent built, and
     writes its readings to ``out_path`` (an ``error`` key on failure)."""
+    import faulthandler
+
     import torch
+    faulthandler.enable()                   # a crash prints each thread's stack
     out = {"rank": rank}
     try:
         torch.cuda.set_device(0)
@@ -3625,6 +3912,12 @@ def dist_rank(rank: int, world: int, store: str, out_path: str):
                 kernels_us=kernels_us(call, flush), kernels_us_warm=kernels_us(call),
                 max_abs_err=out["partials"]["acc_max_abs_err"])
         dist.barrier()
+        # sharded decode_steps: each rank's kernels on its own shards
+        out["decode"] = {}
+        for name, arch, layers in DIST_DECODE:
+            dist.barrier()
+            out["decode"][name] = sharded_decode_case(dev, mesh, arch, layers)
+        dist.barrier()
         dist.destroy_process_group()
     except Exception:                       # reported by the parent, which fails
         import traceback
@@ -3690,7 +3983,12 @@ def dist_phase(card: str) -> dict:
            "lse_call_ms_by_rank": [o["lse_call_ms"] for o in outs],
            "combine_ms_by_rank": [o["combine_ms"] for o in outs],
            "ef": [o["ef"] for o in outs], "ef_ms_by_rank": [o["ef_ms"] for o in outs],
-           "timing": outs[0]["timing"]}
+           "timing": outs[0]["timing"],
+           "decode": {name: {**outs[0]["decode"][name],
+                             "launches_by_rank": [o["decode"][name]["launches"] for o in outs],
+                             "rounding_ratio_by_rank": [o["decode"][name]["rounding_ratio"]
+                                                        for o in outs]}
+                      for name, _a, _l in DIST_DECODE}}
     res["dist_phase_s"] = time.perf_counter() - t0
     print(json.dumps({"dist": res}))
     assert len({o["backend"] for o in outs}) == 1 and res["backend"] == "gloo", res["backend"]
@@ -3711,6 +4009,11 @@ def dist_phase(card: str) -> dict:
         assert e["m"] == float(torch.tensor(-1e30)) and e["l_min"] == e["l_max"] == DIST["SLOTS"] // n + DIST["TAIL"], e
         assert e["acc_err"] <= 1e-2, e
         assert o["ef"]["rel"] < DIST_EF_REL and o["ef"]["equal_to_cpu"], o["ef"]
+        for name, d in o["decode"].items():
+            assert d["launches"] == DIST_DECODE_LAUNCHES[name], (o["rank"], name, d)
+            assert d["greedy_equal"] and d["rounding_ratio"] <= 1.0, (o["rank"], name, d)
+            for k, shapes in DIST_DECODE_LOCAL[name].items():
+                assert [tuple(x) for x in d["local_shapes"][k]] == shapes, (o["rank"], name, d)
     return res
 
 
@@ -3750,6 +4053,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dist-only", action="store_true",
                     help="build, then run the dist phase alone (ranks sharing the card; "
                          "its kernels line holds flash_decode_partials only)")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="build, then run the dryrun phase alone (steps counted on the "
+                         "card against their traces on meta; no kernels line)")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)   # lines survive a kill
 
@@ -3789,6 +4095,9 @@ def main(argv=None) -> int:
         return finish(spills)
     if args.dist_only:
         print(json.dumps({"kernels": [dist_row(dist_phase(card))]}))
+        return finish(spills)
+    if args.dryrun_only:
+        dryrun_phase(dev, card)
         return finish(spills)
 
     t0 = time.perf_counter()
@@ -3833,6 +4142,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         xres = dist_phase(card)
+        dryrun_phase(dev, card)
 
     fp = ("src/repro_torch/csrc/flash_prefill.cu",
           "src/repro/kernels/flash_prefill/kernel.py:81")

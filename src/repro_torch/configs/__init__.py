@@ -2,9 +2,9 @@
 
 A copy of ``repro.configs``: every assigned architecture plus the paper's
 own evaluation models is a module exporting ``CONFIG``.  Select with
-``get_config("<arch-id>")``.  Simulation prices any of them; ``Model``
-builds the dense, RG-LRU hybrid and RWKV-6 token-input ones (MLA, MoE and
-embedding-input configs wait for their modules).
+``get_config("<arch-id>")``.  Simulation prices any of them and ``Model``
+builds every one.  ``ASSIGNED_ARCHS`` (the first ten) are the ones the
+dry run sweeps (``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -31,6 +31,8 @@ _REGISTRY = {
     "qwen3-30b-a3b": "qwen3_30b_a3b",
 }
 
+ASSIGNED_ARCHS = tuple(list(_REGISTRY)[:10])
+PAPER_ARCHS = tuple(list(_REGISTRY)[10:])
 ALL_ARCHS = tuple(_REGISTRY)
 
 

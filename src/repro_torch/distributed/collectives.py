@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.constraints import ambient_mesh, axis_size, constrain
+from repro_torch.distributed.constraints import _as_dtensor, ambient_mesh, axis_size, constrain
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_partials
 
 
@@ -52,7 +52,7 @@ def lse_decode_attention(q, k, v, kpos, q_pos: int, *, scale: float, window: int
             kpos = torch.cat([kpos, tail[2]])
         return flash_decode(q[:, 0].contiguous(), k, v, kpos, q_pos, scale=scale,
                             window=window)[:, None]
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor
     names = mesh.mesh_dim_names or ()
     bax = tuple(a for a in batch_axes if a in names)
     n_b = 1
@@ -62,9 +62,7 @@ def lse_decode_attention(q, k, v, kpos, q_pos: int, *, scale: float, window: int
     bspec = bax if (bax and b % n_b == 0 and b >= n_b) else None
 
     def local(t, *spec):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        return constrain(t, *spec).to_local()
+        return constrain(_as_dtensor(t, mesh), *spec).to_local()
 
     ql = local(q, bspec, None, None, None)
     kl = local(k, bspec, seq_axis, None, None)

@@ -149,6 +149,11 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of ``tensors`` (what a kernel reads and writes once each)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def check_launch(name: str, rc: int):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
@@ -168,13 +173,16 @@ def refuse_dtensor(name: str, *tensors):
                             "its to_local() explicitly")
 
 
-def require_cuda(name: str, *tensors: torch.Tensor, contiguous: bool = True):
+def require_cuda(name: str, *tensors: torch.Tensor, contiguous: bool = True,
+                 meta: bool = False):
     """The kernel takes (contiguous, unless told otherwise) tensors on one
-    CUDA device."""
+    CUDA device; with ``meta``, tensors all on the ``meta`` device pass too
+    (the wrapper's meta route: shapes only, nothing launched)."""
     dev = tensors[0].device
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if t.device.type not in (("cuda", "meta") if meta else ("cuda",)) or t.device != dev:
             raise ValueError(f"{name}: tensors must share one CUDA device "
+                             f"{'(or all lie on meta) ' if meta else ''}"
                              f"(got {t.device} and {dev})")
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

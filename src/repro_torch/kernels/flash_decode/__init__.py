@@ -11,7 +11,13 @@ wrapper call is one counted launch of the two.
 ``flash_decode_partials`` runs the same split and the combine in its
 partials mode: each row's merged f32 partial (acc unnormalised, m, l) over
 the slots it was given, which a sequence-sharded decode combines across
-ranks (``repro_torch.distributed.collectives.lse_decode_attention``)."""
+ranks (``repro_torch.distributed.collectives.lse_decode_attention``).
+
+On ``meta`` tensors both wrappers take the same checks and return empty
+``meta`` outputs of the CUDA route's shapes and dtypes, launching nothing
+(the dry run's route).  On both routes a call is noted to an active
+``repro_torch.launch.op_cost`` analysis with its products
+(:func:`_products`)."""
 from __future__ import annotations
 
 import functools
@@ -19,6 +25,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import op_cost
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)   # head dims the kernel is built for
@@ -52,6 +59,13 @@ def _split_plan(b: int, hkv: int, s: int, sm_count: int) -> tuple[int, int]:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _products(q_shape, k_shape) -> int:
+    """2 per multiply-add of the function's products, QKᵀ and PV, over
+    every slot: 4·B·Hq·S·Dh for q (B, Hq, Dh) over k (B, S, Hkv, Dh)."""
+    b, hq, dh = q_shape
+    return 4 * b * hq * k_shape[1] * dh
 
 
 def flash_decode_plain(q, k, v, kpos, q_pos: int, *, scale: float,
@@ -112,7 +126,7 @@ def _check(name, q, k, v, kpos):
         raise ValueError(f"{name}: the CUDA kernel does not take q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} (Dh 64, 128 or 256, "
                          f"Hq a multiple of Hkv)")
-    _build.require_cuda(name, q, k, v, kpos)
+    _build.require_cuda(name, q, k, v, kpos, meta=True)
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
 
@@ -131,15 +145,20 @@ def _split_scratch(q, k):
 
 def flash_decode(q, k, v, kpos, q_pos: int, *, scale: float, window: int = 0):
     """The kernel on a CUDA tensor (bf16, Dh 64, 128 or 256, Hq a multiple of
-    Hkv), the plain version on a CPU tensor."""
+    Hkv), the plain version on a CPU tensor, an empty output on ``meta``."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kpos, q_pos, scale=scale,
                                   window=window)
     _check("flash_decode", q, k, v, kpos)
     b, hq, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    split_slots, n_split, m, l, acc = _split_scratch(q, k)
     out = torch.empty_like(q)
+    if op_cost.ACTIVE is not None:
+        op_cost.note("flash_decode", _products(q.shape, k.shape),
+                     _build.nbytes(q, k, v, kpos, out))
+    if q.device.type == "meta":
+        return out
+    split_slots, n_split, m, l, acc = _split_scratch(q, k)
     rc = _build.lib().flash_decode_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
         out.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, s, hq,
@@ -157,18 +176,24 @@ def flash_decode_partials(q, k, v, kpos, q_pos: int, *, scale: float,
                           window: int = 0):
     """(acc, m, l) in f32 as :func:`flash_decode_partials_plain`: the split
     kernel and the combine in its partials mode on a CUDA tensor (what
-    :func:`flash_decode` takes), the plain version on a CPU tensor."""
+    :func:`flash_decode` takes), the plain version on a CPU tensor, empty
+    outputs on ``meta``."""
     if q.device.type == "cpu":
         return flash_decode_partials_plain(q, k, v, kpos, q_pos, scale=scale,
                                            window=window)
     _check("flash_decode_partials", q, k, v, kpos)
     b, hq, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    split_slots, n_split, m, l, acc = _split_scratch(q, k)
     out = torch.empty(b * hq * (dh + 2), dtype=torch.float32, device=q.device)
     acc_o = out[:b * hq * dh].view(b, hq, dh)
     m_o = out[b * hq * dh:b * hq * (dh + 1)].view(b, hq)
     l_o = out[b * hq * (dh + 1):].view(b, hq)
+    if op_cost.ACTIVE is not None:
+        op_cost.note("flash_decode_partials", _products(q.shape, k.shape),
+                     _build.nbytes(q, k, v, kpos, out))
+    if q.device.type == "meta":
+        return acc_o, m_o, l_o
+    split_slots, n_split, m, l, acc = _split_scratch(q, k)
     rc = _build.lib().flash_decode_partials_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
         acc_o.data_ptr(), m_o.data_ptr(), l_o.data_ptr(), m.data_ptr(),

@@ -13,6 +13,12 @@ of the cache, batch row).  Where the M tiles alone leave SMs idle, the plan
 (:func:`_plan`) splits the cache, the blocks write f32 partials (m, l, acc)
 and a second kernel combines them (``csrc/flash_prefill.cu``).  One
 wrapper call is one counted launch.
+
+On ``meta`` tensors the wrapper takes the same checks and returns an empty
+``meta`` output of the CUDA route's shape and dtype, launching nothing (the
+dry run's route).  On both routes a call is noted to an active
+``repro_torch.launch.op_cost`` analysis with its products
+(:func:`_products`).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import op_cost
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)   # head dims the kernel is built for
@@ -62,6 +69,14 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _products(q_shape, k_shape) -> int:
+    """2 per multiply-add of the function's products, QKᵀ and PV, over
+    every (query row, slot) pair, as the plain version computes them:
+    4·B·Sq·Hq·S·Dh for q (B, Sq, Hq, Dh) over k (B, S, Hkv, Dh)."""
+    b, sq, hq, dh = q_shape
+    return 4 * b * sq * hq * k_shape[1] * dh
+
+
 def flash_prefill_plain(q, k, v, kpos, q_offset: int, *, scale: float,
                         window: int = 0):
     """q (B, Sq, Hq, Dh); k/v (B, S, Hkv, Dh); kpos (S,) int32.  Scores and
@@ -85,7 +100,7 @@ def flash_prefill_plain(q, k, v, kpos, q_offset: int, *, scale: float,
 def flash_prefill(q, k, v, kpos, q_offset: int, *, scale: float,
                   window: int = 0):
     """The kernel on a CUDA tensor (bf16, Dh 64, 128 or 256, Hq a multiple of
-    Hkv), the plain version on a CPU tensor."""
+    Hkv), the plain version on a CPU tensor, an empty output on ``meta``."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, kpos, q_offset, scale=scale,
                                    window=window)
@@ -106,12 +121,17 @@ def flash_prefill(q, k, v, kpos, q_offset: int, *, scale: float,
         raise ValueError(f"flash_prefill: the CUDA kernel does not take q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} (Dh 64, 128 or 256, "
                          f"Hq a multiple of Hkv)")
-    _build.require_cuda("flash_prefill", q, k, v, kpos)
+    _build.require_cuda("flash_prefill", q, k, v, kpos, meta=True)
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_prefill: q, k and v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if op_cost.ACTIVE is not None:
+        op_cost.note("flash_prefill", _products(q.shape, k.shape),
+                     _build.nbytes(q, k, v, kpos, out))
+    if q.device.type == "meta":
+        return out
     _, n_split, split_slots = _plan(b, hkv, sq, hq // hkv, s,
                                     _sm_count(q.device.index))
-    out = torch.empty_like(q)
     m = l = acc = 0
     if n_split > 1:
         # f32 partials of every (row, query head, split): acc, then m, then l

@@ -21,6 +21,12 @@ flip(gh) with gl added to its first row, 0)`` flipped back.  Then db =
 lam, dlog_a_t = (lam_t h_{t-1}) exp(log_a_t) with h_{-1} = h0, and dh0 =
 exp(log_a_0) lam_0: the products autograd of the plain loop forms, in its
 order, so on the CPU the gradients equal that autograd's bit for bit.
+
+On ``meta`` tensors :func:`rglru_scan` takes the same checks and returns
+empty ``meta`` outputs of the CUDA route's shapes and dtypes, launching
+nothing (the dry run's route; the backward follows it).  On both routes a
+call is noted to an active ``repro_torch.launch.op_cost`` analysis with
+its products (:func:`_products`).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import op_cost
 
 SMEM_OPTIN = _build.SMEM_OPTIN
 STEP_NT = 64                 # csrc: threads a block of the one-step kernel
@@ -93,6 +100,13 @@ def rglru_plan(bsz: int, s: int, w: int, aligned: bool = True, *,
     return RglruPlan("tile", c, t, st, vec, smem, (-(-w // c), bsz), TILE_NT)
 
 
+def _products(shape) -> int:
+    """2 per multiply-add of the step form's state product, a_t·h_{t-1} +
+    b_t for every channel of every step: 2·B·S·W for log_a (B, S, W)."""
+    bsz, s, w = shape
+    return 2 * bsz * s * w
+
+
 def rglru_scan_plain(log_a, b, h0):
     """log_a/b (B, S, W) f32, h0 (B, W) f32 -> (h (B, S, W), h_last (B, W)).
     Steps the recurrence in time order in f32, a multiply then an add per
@@ -122,15 +136,21 @@ def rglru_scan(log_a, b, h0, *, variant=None, reverse: bool = False):
     """The kernels on CUDA tensors (f32, contiguous): the one-step kernel
     when S == 1, else the tiled kernel, as :func:`rglru_plan` picks
     (``variant`` forces the tiled kernel's build); the plain version on CPU
-    tensors.  ``reverse`` marks the backward's call over reversed time,
+    tensors; empty outputs on ``meta``.  ``reverse`` marks the backward's call over reversed time,
     counted apart in ``reverse_launches``."""
     if log_a.device.type == "cpu":
         return rglru_scan_plain(log_a, b, h0)
     _build.refuse_dtensor("rglru_scan", log_a, b, h0)
     bsz, s, w = _shape(log_a, b, h0)
-    _build.require_cuda("rglru_scan", log_a, b, h0)
+    _build.require_cuda("rglru_scan", log_a, b, h0, meta=True)
     h = torch.empty_like(b)
     h_last = torch.empty_like(h0)     # never a view of h: callers keep it as state
+    if op_cost.ACTIVE is not None:
+        op_cost.note("rglru_scan", _products(log_a.shape),
+                     _build.nbytes(log_a, b, h0, h, h_last))
+    if log_a.device.type == "meta":
+        rglru_plan(bsz, s, w, variant=variant)        # its refusals
+        return h, h_last
     ptrs = (log_a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
             h_last.data_ptr())
     p = rglru_plan(bsz, s, w, all(x % 16 == 0 for x in ptrs), variant=variant)

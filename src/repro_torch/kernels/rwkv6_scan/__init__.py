@@ -38,6 +38,12 @@ them out); a last launch sums du over the chunks.
 :func:`wkv6` routes through :class:`Wkv6Scan` whenever a gradient is
 wanted, on the card and on the CPU alike (there the plain versions run,
 :func:`wkv6_backward_plain` being the backward kernel's algorithm).
+
+On ``meta`` tensors the forward and backward wrappers take the same checks
+and return empty ``meta`` outputs of the CUDA route's shapes and dtypes,
+launching nothing (the dry run's route).  On both routes a call is noted
+to an active ``repro_torch.launch.op_cost`` analysis with its products
+(:func:`_products`, :func:`_backward_products`).
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import collections
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import op_cost
 
 HEAD_SIZES = (32, 64)        # the head sizes the kernels are built for
 # The chunked kernel's variants, (steps a chunk, state columns a block,
@@ -58,6 +65,22 @@ CHUNK = CHUNKED[0]           # steps a chunk
 CHUNKED_32 = (16, 32, 2)     # the chunked kernel's one build at head size 32
 BWD_CHUNK = 16               # csrc/wkv6_bwd.cu BC: steps a chunk of the backward
 BWD_THREADS = 256            # csrc/wkv6_bwd.cu BNT: threads a block of its chunk pass
+
+
+def _products(shape) -> int:
+    """2 per multiply-add of the step form's state products for r (B, S, H,
+    Dh): each step reads y out (S_{t-1}ᵀ r_t) and adds the rank-one update
+    (k_t v_tᵀ), Dh² multiply-adds each: 4·B·S·H·Dh²."""
+    bsz, s, h, dh = shape
+    return 4 * bsz * s * h * dh * dh
+
+
+def _backward_products(shape) -> int:
+    """2 per multiply-add of the step-form backward's state products: S_t
+    rebuilt (k_t v_tᵀ), G carried back (r_t dy_tᵀ), dr_t = S_{t-1} dy_t, dk_t
+    = G_t v_t, dv_t = G_tᵀ k_t and dw_t = rowsum(G_t ⊙ S_{t-1}), Dh²
+    multiply-adds each: 12·B·S·H·Dh²."""
+    return 3 * _products(shape)
 
 
 def wkv6_plain(r, k, v, w, u, s0, dtype=torch.float32):
@@ -146,14 +169,15 @@ def _check(name, r, k, v, w, u, s0, *more):
         raise ValueError(f"{name}: the CUDA kernels take head sizes {HEAD_SIZES} "
                          f"only; unsupported shapes r {tuple(r.shape)} u "
                          f"{tuple(u.shape)} s0 {tuple(s0.shape)}")
-    _build.require_cuda(name, *ins)
+    _build.require_cuda(name, *ins, meta=True)
     if any(t.data_ptr() % 16 for t in ins):
         raise ValueError(f"{name}: r, k, v, w, u and s0 must be 16-byte aligned")
     return bsz, s, h, dh
 
 
 def _forward(r, k, v, w, u, s0, variant):
-    """The forward kernels on CUDA tensors, the plain version on CPU ones."""
+    """The forward kernels on CUDA tensors, the plain version on CPU ones,
+    empty outputs on ``meta``."""
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, s0)
     built = CHUNKED_VARIANTS if r.shape[-1] == 64 else (CHUNKED_32,)
@@ -164,6 +188,11 @@ def _forward(r, k, v, w, u, s0, variant):
     bsz, s, h, dh = _check("wkv6", r, k, v, w, u, s0)
     y = torch.empty_like(r)
     s_last = torch.empty_like(s0)
+    if op_cost.ACTIVE is not None:
+        op_cost.note("wkv6", _products(r.shape),
+                     _build.nbytes(r, k, v, w, u, s0, y, s_last))
+    if r.device.type == "meta":
+        return y, s_last
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             s0.data_ptr(), y.data_ptr(), s_last.data_ptr())
     if s == 1:
@@ -182,8 +211,9 @@ def wkv6(r, k, v, w, u, s0, *, variant=None):
     """The kernels on CUDA tensors (f32, contiguous, head size 32 or 64):
     the one-step kernel when S == 1, else the chunked kernel built as
     ``variant`` (at head size 64 one of ``CHUNKED_VARIANTS``, CHUNKED by
-    default; at 32 CHUNKED_32); the plain version on CPU tensors.  Where a
-    gradient is wanted, through :class:`Wkv6Scan`."""
+    default; at 32 CHUNKED_32); the plain version on CPU tensors; empty
+    outputs on ``meta``.  Where a gradient is wanted, through
+    :class:`Wkv6Scan`."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, s0)):
         return Wkv6Scan.apply(r, k, v, w, u, s0, variant)
     return _forward(r, k, v, w, u, s0, variant)
@@ -272,7 +302,8 @@ def bwd_scratch_shapes(bsz: int, s: int, h: int, dh: int) -> dict:
 def wkv6_backward(r, k, v, w, u, s0, dy, ds_last=None):
     """The backward kernel on CUDA tensors (as :func:`wkv6` takes them, with
     dy like r and ds_last like s0 or None for a zero gradient), the plain
-    version in f32 on CPU tensors.  Returns (dr, dk, dv, dw, du, ds0)."""
+    version in f32 on CPU tensors, empty outputs on ``meta``.  Returns (dr,
+    dk, dv, dw, du, ds0)."""
     if r.device.type == "cpu":
         return wkv6_backward_plain(r, k, v, w, u, s0, dy, ds_last)
     bsz, s, h, dh = _check("wkv6_backward", r, k, v, w, u, s0, dy)
@@ -280,6 +311,12 @@ def wkv6_backward(r, k, v, w, u, s0, dy, ds_last=None):
         _check("wkv6_backward", r, k, v, w, u, ds_last)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du, ds0 = torch.empty_like(u), torch.empty_like(s0)
+    if op_cost.ACTIVE is not None:
+        op_cost.note("wkv6_backward", _backward_products(r.shape),
+                     _build.nbytes(r, k, v, w, u, s0, dy, *([] if ds_last is None else [ds_last]),
+                                   dr, dk, dv, dw, du, ds0))
+    if r.device.type == "meta":
+        return dr, dk, dv, dw, du, ds0
     states, du_part = (torch.empty(shape, dtype=torch.float32, device=r.device)
                        for shape in bwd_scratch_shapes(bsz, s, h, dh).values())
     rc = _build.lib().wkv6_bwd_f32(

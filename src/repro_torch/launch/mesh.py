@@ -18,7 +18,9 @@ def init_process_group(rank: int, world_size: int, store_path: str, *,
     """Join the default process group through the file ``store_path``
     (``file://`` rendezvous).  Backend: ``nccl`` when every rank has a card
     of its own; ``gloo`` on the CPU and when ranks share a card (NCCL takes
-    one rank per card).  Returns the backend's name."""
+    one rank per card; DTensor's collectives of CUDA tensors are then
+    staged through host memory, :func:`_stage_functional_collectives`).
+    Returns the backend's name."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -29,7 +31,35 @@ def init_process_group(rank: int, world_size: int, store_path: str, *,
         backend = "gloo"
     dist.init_process_group(backend, init_method=f"file://{store_path}",
                             world_size=world_size, rank=rank)
+    if backend == "gloo" and dev.type == "cuda":
+        _stage_functional_collectives()
     return backend
+
+
+_STAGED = None          # the registrations of _stage_functional_collectives
+
+
+def _stage_functional_collectives():
+    """Run the functional collectives (``torch.ops._c10d_functional``, which
+    DTensor's redistributions call) on host copies of CUDA tensors.  Over
+    gloo their work on a CUDA tensor crashes the process in ``wait_tensor``
+    (a segmentation fault on an H100 with torch 2.11), while gloo's c10d
+    calls stage CUDA tensors through host memory and work: this is that
+    staging, done before the call.  Once a process."""
+    global _STAGED
+    if _STAGED is not None:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    ops = torch.ops._c10d_functional
+
+    def staged(op):
+        def impl(inp, *args):
+            return ops.wait_tensor(op(inp.cpu(), *args)).to(inp.device)
+        return impl
+    for name in ("all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor",
+                 "all_to_all_single"):
+        lib.impl(name, staged(getattr(ops, name).default), "CUDA")
+    _STAGED = lib
 
 
 def _mesh(shape, names, device):

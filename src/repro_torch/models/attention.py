@@ -18,13 +18,20 @@ runs in f32, which the attention kernels (bf16) do not take.
 Positions live on the host: they are known there, the kernels take the
 query offset as a launch argument, and the cache slots they address are
 plain slices — so nothing here waits on the device for an index.
+
+On a mesh (DTensor parameters and cache, under ``use_mesh``) the chunk's KV
+is written through the shards that hold its slots and each rank's kernel
+gets its own shards (``_attend``): the same kernels, on local tensors.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.distributed.constraints import ambient_mesh, axis_size, constrain
+from repro_torch.distributed.collectives import lse_decode_attention
+from repro_torch.distributed.constraints import (ambient_mesh, axis_size, constrain,
+                                                 local_call, merge_dims, split_dim,
+                                                 write_slots)
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models.layers import apply_rope, dense_init, rms_head_norm
@@ -64,9 +71,9 @@ def project_qkv(cfg: ModelConfig, params: dict, x: torch.Tensor,
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
-    q = q.reshape(b, s, hq, dh)
-    k = k.reshape(b, s, hk, dh)
-    v = v.reshape(b, s, hk, dh)
+    q = split_dim(q, -1, (hq, dh))
+    k = split_dim(k, -1, (hk, dh))
+    v = split_dim(v, -1, (hk, dh))
     if cfg.use_qk_norm:
         q = rms_head_norm(q, params["q_norm"])
         k = rms_head_norm(k, params["k_norm"])
@@ -100,7 +107,12 @@ def attention_chunk(cfg: ModelConfig, params: dict, x: torch.Tensor,
     pos_dev = torch.arange(p0, p0 + c, dtype=torch.int32, device=dev).expand(b, c)
     q, k, v = project_qkv(cfg, params, x, pos_dev)
     # --- write chunk KV into the cache (ring buffer if windowed) ---
-    if cfg.attn_window:
+    if _is_dtensor(k_cache):
+        slots = [(p0 + i) % s_cache if cfg.attn_window else p0 + i for i in range(c)]
+        write_slots(k_cache, 1, slots, k.to(k_cache.dtype))
+        write_slots(v_cache, 1, slots, v.to(v_cache.dtype))
+        write_slots(kpos, 0, slots, torch.arange(p0, p0 + c, dtype=torch.int32, device=dev))
+    elif cfg.attn_window:
         slot = pos_dev[0] % s_cache
         k_cache[:, slot] = k.to(k_cache.dtype)
         v_cache[:, slot] = v.to(v_cache.dtype)
@@ -111,14 +123,45 @@ def attention_chunk(cfg: ModelConfig, params: dict, x: torch.Tensor,
         kpos[p0:p0 + c] = pos_dev[0]
     scale = 1.0 / (cfg.qk_head_dim ** 0.5)
     kc, vc = k_cache.to(q.dtype), v_cache.to(q.dtype)
-    if c == 1:
-        out = flash_decode(q[:, 0].contiguous(), kc, vc, kpos, p0, scale=scale,
-                           window=cfg.attn_window)[:, None]
-    else:
-        out = flash_prefill(q.contiguous(), kc, vc, kpos, p0, scale=scale,
-                            window=cfg.attn_window)
-    out = out.reshape(b, c, cfg.num_heads * cfg.head_dim)
+    out = _attend(cfg, q, kc, vc, kpos, p0, scale)
+    out = merge_dims(out, b, c, cfg.num_heads * cfg.head_dim)
     return out @ params["wo"].to(x.dtype), k_cache, v_cache, kpos
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _kernel(q, k, v, kpos, p0: int, scale: float, window: int):
+    """q (B, C, Hq, Dh) over the cache slot: ``flash_decode`` for C = 1,
+    ``flash_prefill`` above."""
+    if q.shape[1] == 1:
+        return flash_decode(q[:, 0].contiguous(), k.contiguous(), v.contiguous(),
+                            kpos.contiguous(), p0, scale=scale, window=window)[:, None]
+    return flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(), kpos.contiguous(),
+                         p0, scale=scale, window=window)
+
+
+def _attend(cfg: ModelConfig, q, kc, vc, kpos, p0: int, scale: float):
+    """The chunk's attention in the kernels.  On a mesh (DTensor cache) each
+    rank's kernel gets its own shards: with kv-heads over "model" (the
+    cache's rule where they divide it) each rank attends its heads, q's
+    matching heads moved over "model"; a cache sharded along its sequence
+    decodes through ``lse_decode_attention`` (each rank's slots, an LSE
+    combine) and a prefill chunk attends the slot gathered over "model"
+    (a counted all-gather).  Batch rows stay over ("pod", "data")."""
+    if not _is_dtensor(kc):
+        return _kernel(q, kc, vc, kpos, p0, scale, cfg.attn_window)
+    mesh = ambient_mesh()
+    msize = axis_size(mesh, "model")
+    heads = cfg.num_kv_heads % msize == 0
+    if not heads and q.shape[1] == 1:
+        return lse_decode_attention(q, kc, vc, kpos, p0, scale=scale,
+                                    window=cfg.attn_window)
+    spec = (("pod", "data"), None, "model" if heads else None, None)
+    return local_call(lambda *t: _kernel(*t, p0, scale, cfg.attn_window),
+                      [(q, spec), (kc, spec), (vc, spec), (kpos, (None,))], (0,))
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +175,7 @@ def gqa_scores_naive(q, k, v, mask, scale):
     cast back to q's dtype before P·V, as the reference."""
     b, s, hq, dh = q.shape
     hk = k.shape[2]
-    qg = q.reshape(b, s, hk, hq // hk, dh)
+    qg = split_dim(q, 2, (hk, hq // hk))
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
     if mask.dim() == 2:
         mask = mask[None]
@@ -152,14 +195,37 @@ def gqa_flash(q, k, v, q_pos, k_pos, scale, window: int, block: int = FLASH_BLOC
     # it with the KV replicated (the reference's constraints; no-ops off-mesh)
     mesh = ambient_mesh()
     msize = axis_size(mesh, "model") if mesh is not None else 1
-    if msize > 1 and q.shape[2] % msize == 0:
-        q = constrain(q, ("pod", "data"), None, "model", None)
-        k = constrain(k, ("pod", "data"), None, "model", None)
-        v = constrain(v, ("pod", "data"), None, "model", None)
-    elif msize > 1 and q.shape[1] > 1 and q.shape[1] % msize == 0:
-        q = constrain(q, ("pod", "data"), "model", None, None)
-        k = constrain(k, ("pod", "data"), None, None, None)
-        v = constrain(v, ("pod", "data"), None, None, None)
+    bax = ("pod", "data")
+    heads = msize > 1 and q.shape[2] % msize == 0
+    rows = not heads and msize > 1 and q.shape[1] > 1 and q.shape[1] % msize == 0
+    hq, hk = q.shape[2], k.shape[2]
+    qpr, g = hq // msize, hq // hk
+    groups = heads and (hk % msize == 0 or g % qpr == 0 or qpr % g == 0)
+    if _is_dtensor(q) and (groups or rows):
+        # each rank runs the block loop on its own rows or query heads, the
+        # latter with the KV heads they group with (its shard where the KV
+        # heads divide "model", else its heads' slice of the gathered KV):
+        # the work has no cross-rank term, and DTensor would propagate every
+        # block's products anew (and gather a head split it cannot shard)
+        kvh = "model" if groups and hk % msize == 0 else None
+        first, last = 0, None
+        if groups and kvh is None:
+            r = mesh.get_local_rank("model")
+            first, last = r * qpr // g, ((r + 1) * qpr - 1) // g + 1
+        qs = (bax, None, "model", None) if groups else (bax, "model", None, None)
+        kvs = (bax, None, kvh, None)
+        return local_call(
+            lambda qq, kk, vv, qp, kp: gqa_flash(qq, kk[:, :, first:last], vv[:, :, first:last],
+                                                 qp, kp, scale, window, block),
+            [(q, qs), (k, kvs), (v, kvs), (q_pos, (bax, qs[1])), (k_pos, (bax, None))], (0,))
+    if heads:
+        q = constrain(q, bax, None, "model", None)
+        k = constrain(k, bax, None, "model", None)
+        v = constrain(v, bax, None, "model", None)
+    elif rows:
+        q = constrain(q, bax, "model", None, None)
+        k = constrain(k, bax, None, None, None)
+        v = constrain(v, bax, None, None, None)
     b, s, hq, dh = q.shape
     t, hk, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hk
@@ -169,7 +235,7 @@ def gqa_flash(q, k, v, q_pos, k_pos, scale, window: int, block: int = FLASH_BLOC
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
         t += pad
-    qg = q.reshape(b, s, hk, g, dh)
+    qg = split_dim(q, 2, (hk, g))
     m = torch.full((b, hk, g, s), NEG_INF, dtype=torch.float32, device=q.device)
     den = torch.zeros((b, hk, g, s), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, s, hk, g, dv), dtype=torch.float32, device=q.device)
@@ -216,5 +282,5 @@ def attention_full(cfg: ModelConfig, params: dict, x: torch.Tensor,
         if cfg.attn_window:
             mask &= j > i - cfg.attn_window
         out = gqa_scores_naive(q, k, v, mask, scale)
-    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    out = merge_dims(out, b, s, cfg.num_heads * cfg.head_dim)
     return out @ params["wo"].to(x.dtype), (k, v)

@@ -87,6 +87,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dic
     return cache
 
 
+def cache_bytes(cache: dict) -> int:
+    """Bytes of every field of ``cache``; a DTensor counts its global
+    shape, as the reference sums a global array."""
+    return sum(a.numel() * a.element_size() for a in cache.values())
+
+
 def park_cache(cache: dict) -> dict:
     """Move a (partially restored) cache off the device into pinned host
     tensors — how a preempted restoration parks WITHOUT being finalized.

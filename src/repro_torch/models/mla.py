@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.attention import gqa_flash, use_flash
+from repro_torch.distributed.constraints import write_slots
+from repro_torch.models.attention import _is_dtensor, gqa_flash, use_flash
 from repro_torch.models.layers import apply_norm, apply_rope, dense_init, init_norm
 
 NEG_INF = -1e30
@@ -132,8 +133,13 @@ def mla_chunk(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.
                          "the batch rows")
     pos_dev = torch.arange(p0, p0 + c, dtype=torch.int32, device=x.device).expand(b, c)
     q_nope, q_rope = _project_q(cfg, params, x, pos_dev)
-    ckv_cache[:, p0:p0 + c] = compress_kv(cfg, params, x, pos_dev).to(ckv_cache.dtype)
-    kpos[p0:p0 + c] = pos_dev[0]
+    ckv = compress_kv(cfg, params, x, pos_dev).to(ckv_cache.dtype)
+    if _is_dtensor(ckv_cache):          # on a mesh: through the shards holding the slots
+        write_slots(ckv_cache, 1, range(p0, p0 + c), ckv)
+        write_slots(kpos, 0, range(p0, p0 + c), pos_dev[0])
+    else:
+        ckv_cache[:, p0:p0 + c] = ckv
+        kpos[p0:p0 + c] = pos_dev[0]
     out = mla_attend_absorbed(cfg, params, q_nope, q_rope, pos_dev,
                               ckv_cache.to(x.dtype), kpos)
     return out, ckv_cache, kpos

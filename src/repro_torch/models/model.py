@@ -15,14 +15,19 @@ converts the reference's ``Model.init`` pytree into this layout.
 
 Serving is dropless: the port's MoE dispatch ignores the config's
 ``capacity_factor`` (the reference's ``Model`` replaces it by 0), so
-chunked recomputation reproduces the full-prefill KV.  ``forward`` takes
-the capacity path only in a model built with ``moe_dropless=False``;
+chunked recomputation reproduces the full-prefill KV.  Every entry point
+takes the capacity path only in a model built with ``moe_dropless=False``;
 ``moe_groups`` runs the MoE over that many groups of the sequence, one
 after another, in the full and cached layers.
 
 ``decode_step_append`` is the reference's append-buffer decode: the new
 token's KV goes into a small tail (``init_tail``) and attention runs over
 [cache || tail] in ``flash_decode``, the prefix cache left read-only.
+
+``backend`` is the reference's choice of the whole-sequence attention:
+``"auto"`` (the masked softmax up to ``attention.FLASH_THRESHOLD`` keys,
+the blocked online softmax above) or ``"flash"`` (always blocked).  The
+chunked and decode paths run the hand-written kernels whatever it says.
 
 ``remat_policy`` rematerialises each layer of ``forward`` in the backward
 pass (``torch.utils.checkpoint``, non-reentrant): ``"full"`` and
@@ -48,9 +53,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed.collectives import lse_decode_attention
-from repro_torch.distributed.constraints import ambient_mesh, axis_size, constrain
+from repro_torch.distributed.constraints import (ambient_mesh, axis_size, constrain,
+                                                 write_slots)
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import _is_dtensor
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.kvcache import cache_seq_len, init_cache, layer_slots
@@ -71,7 +78,7 @@ def resolve_device(device) -> torch.device:
 class Model:
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.float32,
                  compute_dtype=torch.float32, device="cuda", remat_policy: str = "none",
-                 moe_groups: int = 0, moe_dropless: bool = True):
+                 moe_groups: int = 0, moe_dropless: bool = True, backend: str = "auto"):
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r}: one of {REMAT_POLICIES}")
         self.cfg = cfg
@@ -81,6 +88,8 @@ class Model:
         self.remat_policy = remat_policy
         self.moe_groups = moe_groups
         self.moe_dropless = moe_dropless
+        attn_mod.use_flash(backend, 0)          # refuses an unknown backend
+        self.backend = backend
         self.slots = layer_slots(cfg)
 
     # ------------------------------------------------------------------
@@ -162,7 +171,8 @@ class Model:
         if kind == "attention":
             x, entry, aux = tfm.attention_layer_full(cfg, p, x, positions,
                                                      dropless=self.moe_dropless,
-                                                     moe_groups=self.moe_groups)
+                                                     moe_groups=self.moe_groups,
+                                                     backend=self.backend)
             entry = {f: constrain(a, ("pod", "data"), "model") for f, a in entry.items()}
             return constrain(x, ("pod", "data"), "model", None), entry, aux
         if kind == "recurrent":
@@ -233,15 +243,21 @@ class Model:
         """Returns (last-token logits (B, V), the cache filled with the
         sequence; ``grow_cache`` lengthens it for decode)."""
         b, s = inputs.shape[:2]
+        default = positions is None
         positions = self.positions_of(b, s, positions)
         logits, _, entries = self.forward(params, inputs, positions, collect_cache=True)
-        return logits[:, -1], self._entries_to_cache(entries, positions, s)
+        return logits[:, -1], self._entries_to_cache(entries, positions, s,
+                                                     default_positions=default)
 
     def _entries_to_cache(self, entries, positions, s: int,
-                          max_len: Optional[int] = None) -> dict:
+                          max_len: Optional[int] = None,
+                          default_positions: bool = False) -> dict:
         """The stacked cache dict from per-layer whole-sequence entries: the
         last ``attn_window`` tokens in their ring slots for a windowed
-        config, else every token at its position; kpos -1 elsewhere."""
+        config, else every token at its position; kpos -1 elsewhere.  With
+        ``default_positions`` (0..S-1) and DTensor entries (on a mesh) the
+        slots are known on the host and written through the shards that
+        hold them (``write_slots``)."""
         cfg = self.cfg
         s_cache = cache_seq_len(cfg, max_len or s)
         kinds = cfg.layer_kinds()
@@ -256,6 +272,9 @@ class Model:
 
             def to_cache(a):
                 buf = a.new_zeros((a.shape[0], s_cache) + a.shape[2:])
+                if default_positions and _is_dtensor(a):
+                    return write_slots(buf, 1, [p % s_cache for p in range(lo, s)],
+                                       a[:, lo:])
                 buf[:, slot] = a[:, lo:]
                 return buf
 
@@ -285,6 +304,7 @@ class Model:
             fields = ("ckv", "kpos") if self.cfg.mla is not None else ("k", "v", "kpos")
             view = {f: cache[f][slot] for f in fields}
             x, _ = tfm.attention_layer_cached(self.cfg, p, x, positions, view,
+                                              dropless=self.moe_dropless,
                                               moe_groups=self.moe_groups)
             return x, cache
         if kind == "recurrent":
@@ -417,7 +437,7 @@ class Model:
                 a = a @ p["attn"]["wo"].to(h.dtype)
             x = x + a
             h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-            f, _ = tfm._ffn(cfg, p, h, moe_groups=self.moe_groups)
+            f, _ = tfm._ffn(cfg, p, h, self.moe_dropless, self.moe_groups)
             x = x + f
         return x, tail
 
@@ -465,12 +485,12 @@ def _remat(fn, policy: str):
 
 def build_model(cfg: ModelConfig, *, param_dtype=torch.float32,
                 compute_dtype=torch.float32, device="cuda", remat_policy: str = "none",
-                moe_groups: int = 0, moe_dropless: bool = True) -> Model:
+                moe_groups: int = 0, moe_dropless: bool = True, backend: str = "auto") -> Model:
     """The reference's ``build_model``: a ``Model`` of ``cfg`` (the port's
     holds no compiled state, so there is nothing to cache)."""
     return Model(cfg, param_dtype=param_dtype, compute_dtype=compute_dtype,
                  device=device, remat_policy=remat_policy, moe_groups=moe_groups,
-                 moe_dropless=moe_dropless)
+                 moe_dropless=moe_dropless, backend=backend)
 
 
 def _leaves(tree):

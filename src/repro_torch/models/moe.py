@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, MoEConfig
-from repro_torch.distributed.constraints import constrain
+from repro_torch.distributed.constraints import constrain, local_call
 from repro_torch.models.layers import _gelu, apply_mlp, dense_init, init_mlp
 
 
@@ -111,22 +111,21 @@ def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
     # the batch axes, the buffer's experts over "model" and slots over "data"
     x_rep = constrain(x.repeat_interleave(k, dim=0), ("pod", "data"), None)  # (T·k, D)
     if not capacity:
-        buf = torch.zeros((e, t, d), dtype=x.dtype, device=x.device)
-        buf[flat_e, slot] = x_rep
+        buf = _scatter_pairs((e, t, d), (flat_e, slot), x_rep, accumulate=False)
         buf = constrain(buf, "model", "data", None)
         y_buf = constrain(_expert_ffn(params, buf, activation), "model", "data", None)
-        y_rep = y_buf[flat_e, slot]                                           # (T·k, D)
+        y_rep = _take_pairs(y_buf, (flat_e, slot))                            # (T·k, D)
     else:
         # the reference's capacity path: pairs past their expert's cap slots
         # are dropped (zero in, zero out), the rest accumulate as its .add
         cap = max(1, int(t * k / e * moe.capacity_factor))
         keep = (slot < cap)[:, None]
         at = slot.clamp(max=cap - 1)
-        buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-        buf.index_put_((flat_e, at), torch.where(keep, x_rep, 0), accumulate=True)
+        buf = _scatter_pairs((e, cap, d), (flat_e, at), torch.where(keep, x_rep, 0),
+                             accumulate=True)
         buf = constrain(buf, "model", "data", None)
         y_buf = constrain(_expert_ffn(params, buf, activation), "model", "data", None)
-        y_rep = torch.where(keep, y_buf[flat_e, at], 0)
+        y_rep = torch.where(keep, _take_pairs(y_buf, (flat_e, at)), 0)
 
     # combine in the reference's order and dtype
     w = top_p.reshape(t * k, 1).to(y_rep.dtype)
@@ -137,6 +136,31 @@ def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
     ce = onehot.sum(dim=0).float() / (t * k)          # bincount, with no host sync
     aux = e * torch.sum(me * ce) * moe.router_aux_loss
     return y, aux
+
+
+def _replicated(fn, *tensors):
+    """``fn`` on the tensors; on a mesh (DTensors) on every rank's whole
+    copy of them (each gathered: counted all-gathers), the output
+    replicated — DTensor has no sharded scatter or gather by index."""
+    from torch.distributed.tensor import DTensor
+    if not any(isinstance(t, DTensor) for t in tensors):
+        return fn(*tensors)
+    return local_call(fn, [(t, (None,) * t.ndim) for t in tensors], (0,))
+
+
+def _scatter_pairs(shape, idx, vals, accumulate: bool):
+    """zeros(shape) with ``vals`` put at the index tensors ``idx`` (summed
+    where ``accumulate``)."""
+    def put(v, *ix):
+        buf = torch.zeros(shape, dtype=v.dtype, device=v.device)
+        buf.index_put_(ix, v, accumulate=accumulate)
+        return buf
+    return _replicated(put, vals, *idx)
+
+
+def _take_pairs(buf, idx):
+    """buf[idx] for the index tensors ``idx``."""
+    return _replicated(lambda b, *ix: b[ix], buf, *idx)
 
 
 def _moe_group_einsum(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.constraints import local_call, merge_dims, split_dim
 from repro_torch.kernels.rglru_scan import rglru_scan_grad
 from repro_torch.models.layers import _gelu, dense_init
 
@@ -66,9 +67,9 @@ def _softplus(x):
 def _gates(params: dict, z: torch.Tensor, nh: int):
     """z: (B, S, W) -> log_a (B,S,W) f32, gated input b (B,S,W) f32."""
     b, s, w = z.shape
-    zh = z.reshape(b, s, nh, w // nh)
-    ra = torch.einsum("bsnh,nhk->bsnk", zh, params["gate_a"].to(z.dtype)).reshape(b, s, w)
-    ri = torch.einsum("bsnh,nhk->bsnk", zh, params["gate_i"].to(z.dtype)).reshape(b, s, w)
+    zh = split_dim(z, -1, (nh, w // nh))
+    ra = merge_dims(torch.einsum("bsnh,nhk->bsnk", zh, params["gate_a"].to(z.dtype)), b, s, w)
+    ri = merge_dims(torch.einsum("bsnh,nhk->bsnk", zh, params["gate_i"].to(z.dtype)), b, s, w)
     r = torch.sigmoid(ra.float() + params["gate_a_b"].float())
     i = torch.sigmoid(ri.float() + params["gate_i_b"].float())
     log_a = -_C * _softplus(params["lam"].float()) * r
@@ -99,7 +100,12 @@ def rglru_full(cfg: ModelConfig, params: dict, x: torch.Tensor,
     z = x @ params["w_x"].to(x.dtype)
     z, conv_tail = causal_conv1d(z, params["conv_w"], params["conv_b"], conv_tail)
     log_a, b_t = _gates(params, z, nh)
-    h, h_last = rglru_scan_grad(log_a.contiguous(), b_t.contiguous(),
-                                h0.float().contiguous())
+    # on a mesh each rank scans its own channels (batch rows over the batch
+    # axes, width over "model" where it divides: the state's cache rule)
+    bax = ("pod", "data")
+    h, h_last = local_call(
+        lambda la, bt, hh: rglru_scan_grad(la.contiguous(), bt.contiguous(), hh.contiguous()),
+        [(log_a, (bax, None, "model")), (b_t, (bax, None, "model")),
+         (h0.float(), (bax, "model"))], (0, 2))
     out = (y * h.to(x.dtype)) @ params["w_out"].to(x.dtype)
     return out, conv_tail, h_last

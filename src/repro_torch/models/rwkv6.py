@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.constraints import local_call, split_dim
 from repro_torch.kernels.rwkv6_scan import wkv6
 from repro_torch.models.layers import dense_init
 
@@ -76,7 +77,7 @@ def _ddlerp(params: dict, x, x_prev, rank: int) -> dict:
     xx = x_prev - x
     base = x + xx * params["mix_base"][_MIX_NAMES.index("w")].to(x.dtype)
     lora = torch.tanh(base @ params["mix_w1"].to(x.dtype))
-    lora = lora.reshape(*x.shape[:-1], len(_MIX_NAMES), rank)
+    lora = split_dim(lora, -1, (len(_MIX_NAMES), rank))
     deltas = torch.einsum("...nr,nrd->...nd", lora, params["mix_w2"].to(x.dtype))
     out = {}
     for i, name in enumerate(_MIX_NAMES):
@@ -106,10 +107,15 @@ def time_mix(cfg: ModelConfig, params: dict, x, shift_state, wkv_state):
         torch.tanh(mixed["w"] @ params["decay_w1"].to(x.dtype)).float()
         @ params["decay_w2"].float())
     w = torch.exp(-torch.exp(dec)).reshape(b, s, h, dh)            # (0, 1)
-    y, wkv_state = wkv6(r.float().contiguous(), k.float().contiguous(),
-                        v.float().contiguous(), w.contiguous(),
-                        params["bonus_u"].float().contiguous(),
-                        wkv_state.float().contiguous())
+    # on a mesh each rank runs its own heads (batch rows over the batch axes,
+    # heads over "model" where they divide it: the state's cache rule)
+    bax = ("pod", "data")
+    hs = (bax, None, "model", None)
+    y, wkv_state = local_call(
+        lambda *t: wkv6(*(a.contiguous() for a in t)),
+        [(r.float(), hs), (k.float(), hs), (v.float(), hs), (w, hs),
+         (params["bonus_u"].float(), ("model", None)),
+         (wkv_state.float(), (bax, "model", None, None))], (0, 5))
     # per-head groupnorm (population variance, as jnp's var)
     mean = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, unbiased=False)

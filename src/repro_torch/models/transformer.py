@@ -60,16 +60,16 @@ def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, dropless: bool = True,
 
 
 def attention_layer_full(cfg: ModelConfig, p: dict, x, positions, *,
-                         dropless: bool = True, moe_groups: int = 0):
+                         dropless: bool = True, moe_groups: int = 0, backend: str = "auto"):
     """Whole-sequence attention layer (MHA/GQA or MLA) with its dense or MoE
     FFN; positions (B, S) on x's device.  Returns (x', cache entry for the
     whole sequence — {"k", "v"} or {"ckv"} —, aux)."""
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
     if cfg.mla is not None:
-        a, ckv = mla_mod.mla_full(cfg, p["attn"], h, positions)
+        a, ckv = mla_mod.mla_full(cfg, p["attn"], h, positions, backend)
         entry = {"ckv": ckv}
     else:
-        a, (k, v) = attn.attention_full(cfg, p["attn"], h, positions)
+        a, (k, v) = attn.attention_full(cfg, p["attn"], h, positions, backend)
         entry = {"k": k, "v": v}
     x = x + a
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
@@ -78,7 +78,8 @@ def attention_layer_full(cfg: ModelConfig, p: dict, x, positions, *,
 
 
 def attention_layer_cached(cfg: ModelConfig, p: dict, x, positions,
-                           layer_cache: dict, *, moe_groups: int = 0):
+                           layer_cache: dict, *, dropless: bool = True,
+                           moe_groups: int = 0):
     """layer_cache: {"k","v","kpos"} or, with MLA, {"ckv","kpos"} views of
     THIS layer's cache slot, updated in place.  Returns (x', layer_cache)."""
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
@@ -93,7 +94,7 @@ def attention_layer_cached(cfg: ModelConfig, p: dict, x, positions,
         new_cache = {"k": k, "v": v, "kpos": kpos}
     x = x + a
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    f, _ = _ffn(cfg, p, h, moe_groups=moe_groups)
+    f, _ = _ffn(cfg, p, h, dropless, moe_groups)
     return x + f, new_cache
 
 

@@ -209,6 +209,13 @@ def trace_to_chrome(trace, telemetry: Optional[dict] = None) -> dict:
                          telemetry=telemetry)
 
 
+def result_to_chrome(result, *, events=None, requests=None,
+                     telemetry: Optional[dict] = None) -> dict:
+    """Render a live ``EngineResult`` (no trace capture needed)."""
+    return ops_to_chrome(result.ops_log, events=events, requests=requests,
+                         telemetry=telemetry)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.obs.timeline",

@@ -134,6 +134,100 @@ def lse_cases(job, mesh):
     return out
 
 
+KERNEL_SITES = (("repro_torch.models.attention", "flash_decode"),
+                ("repro_torch.models.attention", "flash_prefill"),
+                ("repro_torch.distributed.collectives", "flash_decode_partials"),
+                ("repro_torch.models.rglru", "rglru_scan_grad"),
+                ("repro_torch.models.rwkv6", "wkv6"))
+
+
+def _spied(calls):
+    """Patch every kernel call site of the models with a spy recording, per
+    wrapper, whether each call got a DTensor; returns the undo."""
+    import importlib
+
+    from torch.distributed.tensor import DTensor
+    undo = []
+    for mod_name, name in KERNEL_SITES:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, name)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            calls.setdefault(_name, []).append(
+                any(isinstance(t, DTensor) for t in list(a) + list(kw.values())))
+            return _fn(*a, **kw)
+        setattr(mod, name, spy)
+        undo.append((mod, name, fn))
+    return lambda: [setattr(m, n, f) for m, n, f in undo]
+
+
+def sharded_decode(job, mesh):
+    """One ``decode_step`` a case on (1, 4) against the same step in one
+    process (plain tensors): qwen3-8b with 4 kv-heads (the cache's heads over
+    "model"), recurrentgemma-2b (MQA: the cache along its sequence, the
+    RG-LRU state along its width) and rwkv6-7b (the wkv state's heads), each
+    from a prefix prefilled in one process.  Every kernel wrapper is spied."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.distributed.constraints import use_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.kvcache import grow_cache
+    out = {}
+    for name, c in job.items():
+        cfg = get_config(c["arch"]).reduced(**c["overrides"])
+        m = build_model(cfg, device="cpu")
+        params = m.init(torch.Generator().manual_seed(0))
+        prompt = torch.from_numpy(c["prompt"])
+        b, pre = prompt.shape
+        with torch.no_grad():
+            last, cache = m.prefill(params, prompt)
+            cache = grow_cache(cfg, cache, c["slots"])
+            tok = last.argmax(-1).to(torch.int32)
+            one, one_cache = m.decode_step(params, tok, copy.deepcopy(cache), pre)
+        specs = shr.cache_pspecs(m, mesh, b, c["slots"])
+        p_sh = _place(params, shr.param_pspecs(m, "serve_tp"), mesh)
+        c_sh = _place(cache, specs, mesh)
+        t_sh = _place(tok, shr.data_pspecs(cfg, mesh, "decode", b), mesh)
+        calls = {}
+        undo = _spied(calls)
+        try:
+            with use_mesh(mesh), torch.no_grad():
+                logits, c_sh = m.decode_step(p_sh, t_sh, c_sh, pre)
+        finally:
+            undo()
+        out[name] = {"logits": _np(logits), "one": _np(one),
+                     "cache": {f: _np(t) for f, t in c_sh.items()},
+                     "one_cache": {f: _np(t) for f, t in one_cache.items()},
+                     "specs": {f: tuple(sp) for f, sp in specs.items()},
+                     "calls": calls}
+    return out
+
+
+def gqa_local(job, mesh):
+    """``gqa_flash`` on (1, 4) DTensors (q's heads over "model" where they
+    divide it, else its rows; k/v replicated) against its plain run."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.constraints import use_mesh
+    from repro_torch.distributed.sharding import to_placements
+    from repro_torch.models.attention import gqa_flash
+    out = {}
+    for name, c in job.items():
+        q, k, v = (torch.from_numpy(c[f]) for f in ("q", "k", "v"))
+        pos = torch.arange(q.shape[1], dtype=torch.int32).expand(q.shape[0], -1)
+        rep = to_placements(mesh, (None, None, None, None))
+        qd = distribute_tensor(q, mesh, to_placements(mesh, (None, None, "model", None)))
+        kd, vd = (distribute_tensor(t, mesh, rep) for t in (k, v))
+        with use_mesh(mesh):
+            got = gqa_flash(qd, kd, vd, pos, pos, 0.2, c["window"], block=8)
+        out[name] = {"got": _np(got), "want": _np(gqa_flash(q, k, v, pos, pos, 0.2,
+                                                             c["window"], block=8)),
+                     "placements": str(tuple(got.placements))}
+    return out
+
+
 def error_feedback(job, rank):
     from repro_torch.training.compression import error_feedback_psum
     mean, res = error_feedback_psum(torch.from_numpy(job["x"][rank]))
@@ -187,6 +281,8 @@ def main(rank: int, world: int, job_path: str):
         out["append"] = append_decode(job["append"], mesh14)
         out["elastic"] = elastic(job["train"], mesh22, mesh14, str(job_path.parent / "ckpt"))
         out["train"] = train_and_decode(job["train"], mesh22)
+        out["routing"] = sharded_decode(job["routing"], mesh14)
+        out["gqa_local"] = gqa_local(job["gqa_local"], mesh14)
         import torch.distributed as dist
         dist.barrier()
         dist.destroy_process_group()

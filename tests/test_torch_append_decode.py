@@ -221,3 +221,26 @@ def test_einsum_dispatch_through_a_capacity_model_matches_reference(monkeypatch)
         tl, taux = tm.forward(tp, torch.from_numpy(x))
     _close(tl, jl, LOGIT_TOL)
     assert abs(float(taux) - float(jaux)) <= AUX_TOL
+
+
+def test_capacity_model_caches_through_the_capacity_path():
+    """A ``moe_dropless=False`` model (deepseek-moe-16b) keeps the capacity
+    path in its cached entry points, as the reference's: ``prefill_chunk``
+    and ``decode_step`` logits within LOGIT_TOL of the reference's on the
+    same weights and tokens, the cache's fields within LOGIT_TOL."""
+    from repro.models.kvcache import init_cache as j_init_cache
+    cfg, jm, jp, tm, tp = _pair("deepseek-moe-16b", moe_dropless=False)
+    x = np.random.default_rng(12).integers(0, cfg.vocab_size, (B, 16)).astype(np.int32)
+    jcache = j_init_cache(jm.cfg, B, 32, jnp.float32)
+    jl, jcache = jax.jit(jm.prefill_chunk)(jp, jnp.asarray(x), jcache, 0)
+    tcache = tm.init_cache(B, 32)
+    with torch.no_grad():
+        tl, tcache = tm.prefill_chunk(tp, torch.from_numpy(x), tcache, 0)
+    _close(tl, jl, LOGIT_TOL)
+    tok = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)
+    jl, jcache = jax.jit(jm.decode_step)(jp, jnp.asarray(tok), jcache, 16)
+    with torch.no_grad():
+        tl, tcache = tm.decode_step(tp, torch.from_numpy(tok), tcache, 16)
+    _close(tl, jl, LOGIT_TOL)
+    for f in ("k", "v"):
+        _close(tcache[f], jcache[f], LOGIT_TOL)

@@ -30,7 +30,14 @@ under ``tmp_path``, one intra-op thread each, and run every job in turn:
 * parameters placed on (2, 2), checkpointed (gathered to the host),
   restored and re-placed on (1, 4): bit-equal;
 * ``io_channel_ranks`` on both meshes against the reference's
-  ``io_channel_devices`` device ids.
+  ``io_channel_devices`` device ids;
+* one ``decode_step`` a case on (1, 4) against the port's own step in one
+  process: reduced qwen3-8b with 4 kv-heads (the cache's heads over
+  "model": ``flash_decode`` on each rank's heads), recurrentgemma-2b (MQA:
+  the cache along its sequence, ``flash_decode_partials`` and the LSE
+  combine; the RG-LRU scan on each rank's 32 of 128 lanes) and rwkv6-7b
+  (``wkv6`` on each rank's head), every kernel wrapper spied to have been
+  handed local tensors only (ROUTING_TOL).
 
 In process: ``flash_decode_partials_plain`` against the reference's
 ``_partial_decode``; ``compress_decompress`` bit-equal to the reference's
@@ -71,6 +78,33 @@ OVERRIDES = dict(num_heads=4, num_kv_heads=4, d_model=128, d_ff=256)
 B, S = 8, 32                      # the train batch (S + 1 tokens a row)
 A_B, A_PREFIX, A_SLOTS, A_WINDOW, A_STEPS = 2, 40, 64, 16, 8
 APPEND_TOL = 2e-5
+# sharded decode_step on (1, 4) against one process: reduced configs (qwen3-8b
+# with 4 kv-heads so that they divide the ranks), B 4, a 40-token prefix in a
+# 64-slot cache
+ROUTING = {"heads": ("qwen3-8b", {"num_heads": 8, "num_kv_heads": 4}),
+           "sequence": ("recurrentgemma-2b", {}),
+           "wkv_heads": ("rwkv6-7b", {})}
+R_B, R_PREFIX = 4, 40
+# The logits and every cache field within ROUTING_TOL (f32) of one
+# process's, relative to the field's largest magnitude (at least 1): the
+# output projections' products (wo, w_out, w_o, cm_v) sum over
+# "model"-sharded inputs on each rank and an all-reduce adds the partial
+# sums, in another order than one product over the whole inputs, and the
+# next layers carry that rounding on (the wkv state reaches |20|).
+# The fields no sum over a sharded dim reaches (kpos; the cache rows each
+# rank writes from its own heads) are held bit for bit where listed.
+ROUTING_TOL = 1e-5
+ROUTING_EXACT = {"heads": ("kpos",), "sequence": ("kpos",), "wkv_heads": ()}
+# gqa_flash on (1, 4): (Hq, Hkv, window) -> q's heads over "model" with the
+# KV heads each rank's heads group with (2 of 8 heads a rank over 2 KV heads;
+# MQA; KV heads sharded with them), or its rows when the heads do not divide
+GQA_CASES = {"grouped": (8, 2, 0), "mqa": (8, 1, 5), "kv_sharded": (8, 4, 0),
+             "rows": (6, 2, 0)}
+GQA_TOL = 1e-6
+# the wrappers each case must reach (each call with local tensors only)
+ROUTING_KERNELS = {"heads": {"flash_decode"},
+                   "sequence": {"flash_decode_partials", "rglru_scan_grad"},
+                   "wkv_heads": {"wkv6"}}
 LSE_TOL = 1e-6
 
 
@@ -177,7 +211,19 @@ def run(tmp_path_factory):
         a_tok0 = np.asarray(jnp.argmax(a_last, -1)).astype(np.int32)
         lse = _lse_cases()
         ef_x = np.random.default_rng(5).normal(size=(WORLD, 4096 * 3 + 100)).astype(np.float32)
+        prompts = np.random.default_rng(9)
+        routing = {name: {"arch": arch, "overrides": ov, "slots": 64,
+                          "prompt": prompts.integers(0, 512, (R_B, R_PREFIX)).astype(np.int32)}
+                   for name, (arch, ov) in ROUTING.items()}
+        g_rng = np.random.default_rng(13)
+        gqa = {name: {"q": g_rng.normal(size=(2, 16, hq, 16)).astype(np.float32),
+                      "k": g_rng.normal(size=(2, 16, hk, 16)).astype(np.float32),
+                      "v": g_rng.normal(size=(2, 16, hk, 16)).astype(np.float32),
+                      "window": window}
+               for name, (hq, hk, window) in GQA_CASES.items()}
         job = {
+            "routing": routing,
+            "gqa_local": gqa,
             "train": {"overrides": OVERRIDES, "params": tree, "tokens": tokens,
                       "remat": ("none", "dots"), "dec_cache": _tree_np(cache),
                       "dec_tok": dec_tok, "dec_pos": 16},
@@ -288,6 +334,43 @@ def test_lse_decode_attention_matches_reference_sharded_run(run, case):
     assert np.isfinite(want).all()
     for o in ranks:
         _close(o["lse"][case], want, LSE_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(ROUTING))
+def test_sharded_decode_step_routes_local_shards(run, case):
+    """decode_step on (1, 4) DTensors: the kernels' wrappers get each rank's
+    local shards (kv-heads, the cache's sequence with the LSE combine, the
+    RG-LRU width, the wkv heads), and the logits, the greedy token and the
+    updated cache equal one process's step within ROUTING_TOL."""
+    want_spec = {"heads": (None, "data", None, "model", None),
+                 "sequence": (None, "data", "model", None, None)}
+    for o in run[0]:
+        got = o["routing"][case]
+        if case in want_spec:
+            assert got["specs"]["k"] == want_spec[case]
+        calls = got["calls"]
+        assert set(calls) == ROUTING_KERNELS[case], calls
+        assert all(n > 0 for n in map(len, calls.values()))
+        assert not any(dt for c in calls.values() for dt in c), calls
+        _close(got["logits"], got["one"], ROUTING_TOL * max(1.0, np.abs(got["one"]).max()))
+        assert np.array_equal(got["logits"].argmax(-1), got["one"].argmax(-1))
+        for f, a in got["one_cache"].items():
+            if f in ROUTING_EXACT[case]:
+                assert np.array_equal(got["cache"][f], a), f
+            else:
+                _close(got["cache"][f], a, ROUTING_TOL * max(1.0, np.abs(a).max()))
+
+
+@pytest.mark.parametrize("case", sorted(GQA_CASES))
+def test_blocked_attention_runs_on_local_heads_or_rows(run, case):
+    """``gqa_flash`` on DTensors runs each rank's block loop on its own
+    query heads (with the KV heads they group with) or rows: equal to the
+    plain run within GQA_TOL, the output sharded as q was."""
+    want_pl = "Shard(dim=1)" if case == "rows" else "Shard(dim=2)"
+    for o in run[0]:
+        got = o["gqa_local"][case]
+        assert want_pl in got["placements"], got["placements"]
+        _close(got["got"], got["want"], GQA_TOL)
 
 
 def test_error_feedback_psum_matches_reference(run):

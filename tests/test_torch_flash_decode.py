@@ -167,16 +167,21 @@ def test_two_pass_dh64_and_dense_groups(case, g):
 @pytest.mark.parametrize("dh,accepted", [(64, True), (96, False), (128, True),
                                          (192, False), (256, True)])
 def test_wrapper_takes_dh_64_128_256(dh, accepted):
-    """On the meta device a taken Dh passes the shape checks and is refused
-    only for its device; any other Dh is refused by name."""
+    """On the meta device a taken Dh passes the shape checks and takes the
+    meta route (an empty output of q's shape and dtype, no launch); any
+    other Dh is refused by name."""
     dev, bf = "meta", torch.bfloat16
     t = [torch.empty(1, 4, dh, device=dev, dtype=bf),
          torch.empty(1, 64, 2, dh, device=dev, dtype=bf),
          torch.empty(1, 64, 2, dh, device=dev, dtype=bf),
          torch.empty(64, device=dev, dtype=torch.int32)]
     before = flash_decode.launches
-    with pytest.raises(ValueError, match="CUDA device" if accepted else "does not take q"):
-        flash_decode(*t, 63, scale=0.1)
+    if accepted:
+        out = flash_decode(*t, 63, scale=0.1)
+        assert (out.device.type, out.shape, out.dtype) == ("meta", t[0].shape, bf)
+    else:
+        with pytest.raises(ValueError, match="does not take q"):
+            flash_decode(*t, 63, scale=0.1)
     assert flash_decode.launches == before
 
 

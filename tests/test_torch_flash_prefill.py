@@ -312,8 +312,9 @@ REFUSALS = {
     "q_f32": (lambda t: {**t, "q": t["q"].float()}, "bf16"),
     "v_f16": (lambda t: {**t, "v": t["v"].half()}, "bf16"),
     "kpos_int64": (lambda t: {**t, "kpos": t["kpos"].long()}, "int32"),
-    # Dh 64 passes the shape checks: only the meta device is refused
-    "dh_64": (lambda t: _meta_inputs(64), "CUDA device"),
+    # Dh 64 passes the shape checks; meta beside a host kpos is refused
+    "dh_64": (lambda t: {**_meta_inputs(64), "kpos": torch.empty(64, dtype=torch.int32)},
+              "CUDA device"),
     "dh_96": (lambda t: _meta_inputs(96), "Dh 64, 128 or 256"),
     "dh_192": (lambda t: _meta_inputs(192), "Dh 64, 128 or 256"),
 }

@@ -74,12 +74,36 @@ def _attention_inputs(dev="cpu"):
     return [t.to(dev) for t in (q, k, k.clone(), kpos)]
 
 
+# the inputs each kernel of the dry run's path takes (shape, dtype)
+_BF, _F = torch.bfloat16, torch.float32
+META_ROUTE = {
+    "flash_prefill": [((1, 3, 4, 64), _BF), ((1, 8, 2, 64), _BF), ((1, 8, 2, 64), _BF),
+                      ((8,), torch.int32)],
+    "flash_decode": [((1, 4, 64), _BF), ((1, 8, 2, 64), _BF), ((1, 8, 2, 64), _BF),
+                     ((8,), torch.int32)],
+    "rglru_scan": [((1, 3, 32), _F), ((1, 3, 32), _F), ((1, 32), _F)],
+    "wkv6": [((1, 3, 2, 32), _F)] * 4 + [((2, 32), _F), ((1, 2, 32, 32), _F)],
+}
+
+
+def _meta_call(kernel, ins):
+    if kernel == "flash_prefill":
+        return flash_prefill(*ins, 5, scale=0.2)
+    if kernel == "flash_decode":
+        return flash_decode(*ins, 7, scale=0.2)
+    if kernel == "rglru_scan":
+        return rglru_scan(*ins)
+    return wkv6(*ins)
+
+
 @pytest.mark.parametrize("kernel", ["flash_prefill", "flash_decode", "kv_restore",
                                     "kv_quantize", "kv_dequantize", "rglru_scan",
                                     "wkv6"])
 def test_wrappers_plain_on_cpu_only(kernel):
-    """CPU tensors take the plain version and count no launch; a tensor on
-    any other non-CUDA device is refused, not silently computed."""
+    """CPU tensors take the plain version and count no launch; on the meta
+    device the kernels of the dry run's path take their meta route (empty
+    meta outputs of the plain version's shapes and dtypes, no launch) and
+    the store kernels refuse, so nothing is silently computed."""
     def call(dev):
         q, k, v, kpos = _attention_inputs(dev)
         if kernel == "flash_prefill":
@@ -106,8 +130,15 @@ def test_wrappers_plain_on_cpu_only(kernel):
     before = wrappers[kernel].launches
     call("cpu")
     assert wrappers[kernel].launches == before
-    with pytest.raises(ValueError, match="CUDA"):
-        call("meta")
+    if kernel in META_ROUTE:
+        ins = [torch.empty(shape, dtype=dt, device="meta") for shape, dt in META_ROUTE[kernel]]
+        got = _meta_call(kernel, ins)
+        plain = _meta_call(kernel, [torch.zeros(t.shape, dtype=t.dtype) for t in ins])
+        for a, b in zip(*((x,) if isinstance(x, torch.Tensor) else x for x in (got, plain))):
+            assert (a.device.type, a.shape, a.dtype) == ("meta", b.shape, b.dtype)
+    else:
+        with pytest.raises(ValueError, match="CUDA"):
+            call("meta")
     assert wrappers[kernel].launches == before
 
 

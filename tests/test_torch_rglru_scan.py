@@ -194,14 +194,16 @@ REFUSALS = {
                          _meta()[2]], "shapes"),
     "log_a_2d": (lambda: [torch.empty(4, 32, device="meta"), torch.empty(4, 32, device="meta"),
                           torch.empty(4, device="meta")], "shapes"),
-    "not_cuda": (lambda: _meta(), "CUDA"),
+    # meta is the dry run's route; meta beside a host tensor is refused
+    "not_cuda": (lambda: [*_meta()[:2], torch.empty(1, 32)], "CUDA"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_wrapper_refusals(name):
     """Off the CPU the wrapper takes f32 (B, S, W) log_a and b with S >= 1
-    and h0 (B, W), on a CUDA device; it raises before any launch."""
+    and h0 (B, W), on one CUDA device (or all on meta); it raises before
+    any launch."""
     make, msg = REFUSALS[name]
     before = (rglru_scan.launches, rglru_scan.step_launches)
     with pytest.raises(ValueError, match=msg):

@@ -303,18 +303,25 @@ def test_rglru_function_with_one_output_unused():
 
 def test_wkv6_under_gradients_goes_through_its_function_on_a_device_tensor():
     """The device branch (a meta tensor stands in for CUDA here) under
-    gradients runs Wkv6Scan's forward, which takes the kernels' checks (the
-    meta tensors fail the CUDA-device one, past where the wrapper once
-    refused); under no_grad the same checks run outside the Function."""
+    gradients runs Wkv6Scan's forward, which takes the kernels' checks (a
+    meta tensor beside a host one fails the device check there, past where
+    the wrapper once refused; all on meta take the meta route, y carrying
+    Wkv6Scan's backward); under no_grad the same checks run outside the
+    Function."""
     shapes = [(1, 3, 2, 64)] * 4 + [(2, 64), (1, 2, 64, 64)]
     metas = [torch.zeros(s, device="meta", requires_grad=i == 0) for i, s in enumerate(shapes)]
+    mixed = metas[:5] + [torch.zeros(shapes[5])]
     with pytest.raises(ValueError, match="CUDA device") as err:
-        wkv6(*metas)
+        wkv6(*mixed)
     frames = [(e.name, e.frame.f_globals.get("__name__")) for e in err.traceback]
     assert ("forward", "repro_torch.kernels.rwkv6_scan") in frames
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA device") as err:
-        wkv6(*metas)
+        wkv6(*mixed)
     assert all(e.name != "forward" for e in err.traceback)
+    y, s_last = wkv6(*metas)
+    assert "Wkv6Scan" in type(y.grad_fn).__name__ and y.device.type == "meta"
+    with torch.no_grad():
+        assert wkv6(*metas)[0].grad_fn is None
 
 
 def test_adamw_constants_are_the_references():

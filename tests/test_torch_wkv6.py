@@ -203,7 +203,8 @@ REFUSALS = {
     "s_0": (lambda: _meta(s=0), {}, "unsupported shapes"),
     "chunk_64": (_meta, {"variant": (64, 32, 2)}, "no chunked CUDA kernel"),
     "cols_8": (_meta, {"variant": (16, 8, 1)}, "no chunked CUDA kernel"),
-    "not_cuda": (_meta, {}, "one CUDA device"),
+    # meta is the dry run's route; meta beside a host tensor is refused
+    "not_cuda": (lambda: _meta()[:5] + [torch.empty(1, H, DH, DH)], {}, "one CUDA device"),
 }
 
 

@@ -222,8 +222,9 @@ def test_function_returns_no_gradient_where_none_is_wanted():
 
 
 def test_backward_wrapper_checks_before_launching():
-    """The device branch (meta tensors stand in for CUDA) refuses dy of
-    another shape, f64 inputs and tensors off a CUDA device."""
+    """The device branch (meta tensors take its checks, then the meta
+    route: empty gradients of the inputs' shapes) refuses dy of another
+    shape, f64 inputs and tensors off one device."""
     shapes = [(1, 3, 2, 64)] * 4 + [(2, 64), (1, 2, 64, 64), (1, 3, 2, 64)]
     metas = [torch.zeros(s, device="meta") for s in shapes]
     with pytest.raises(ValueError, match="unsupported shapes"):
@@ -231,6 +232,12 @@ def test_backward_wrapper_checks_before_launching():
     with pytest.raises(ValueError, match="f32"):
         wkv6_backward(*metas[:6], metas[6].double())
     with pytest.raises(ValueError, match="CUDA device"):
-        wkv6_backward(*metas)
+        wkv6_backward(*metas[:6], torch.zeros(1, 3, 2, 64))
     with pytest.raises(ValueError, match="CUDA device"):
-        wkv6_backward(*metas, torch.zeros(1, 2, 64, 64, device="meta"))
+        wkv6_backward(*metas, torch.zeros(1, 2, 64, 64))
+    before = wkv6.backward_launches
+    for ds_last in (None, torch.zeros(1, 2, 64, 64, device="meta")):
+        grads = wkv6_backward(*metas, ds_last)
+        assert [(g.device.type, tuple(g.shape)) for g in grads] == [
+            ("meta", s) for s in shapes[:6]]
+    assert wkv6.backward_launches == before
