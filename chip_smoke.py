@@ -12,7 +12,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --quant-sweep     # kernel phase + kv_quantize over (N, branch)
     python3 chip_smoke.py --rglru-sweep     # kernel phase + rglru_scan over (C, T, stages)
     python3 chip_smoke.py --quant-only      # build + kv_quantize alone (any tree)
-    python3 chip_smoke.py --promote-profile # build + a traced qwen3 serve's promotion (any tree)
+    python3 chip_smoke.py --promote-profile # build + a traced qwen3 serve's promotion
     python3 chip_smoke.py --train-only      # build + the train phase alone
     python3 chip_smoke.py --wkv-bwd-only    # build + wkv6's backward check alone (any tree)
     python3 chip_smoke.py --dist-only       # build + the dist phase alone
@@ -1736,36 +1736,10 @@ def read_counters() -> dict:
 # substrings of the port's CUDA kernel names in a profiler trace
 PORT_KERNEL_NAMES = ("flash_prefill", "flash_decode", "kv_restore", "kv_quantize",
                      "kv_dequantize", "rglru_scan", "wkv6")
-# record_function ranges of a traced qwen3 serve: the kernels each launched
+# the program's own spans (repro_torch.obs.SPAN_CATALOG), record_function
+# ranges of a traced qwen3 serve with telemetry on: the kernels each launched
 # (the datapath's promotion of transfer runs, and within it the pool's copies)
-PROMOTE_RANGES = ("promote_run", "promote_staged")
-
-
-@contextlib.contextmanager
-def promote_ranges():
-    """RestoreDatapath._promote_run and ChunkStore.promote_staged run inside
-    record_function ranges named as PROMOTE_RANGES."""
-    from torch.profiler import record_function
-
-    from repro_torch.core.datapath import RestoreDatapath
-    from repro_torch.storage import ChunkStore
-
-    run_sm, staged_fn = RestoreDatapath.__dict__["_promote_run"], ChunkStore.promote_staged
-
-    def promote_run(*args, **kw):
-        with record_function(PROMOTE_RANGES[0]):
-            return run_sm.__func__(*args, **kw)
-
-    def promote_staged(self, *args, **kw):
-        with record_function(PROMOTE_RANGES[1]):
-            return staged_fn(self, *args, **kw)
-    RestoreDatapath._promote_run = staticmethod(promote_run)
-    ChunkStore.promote_staged = promote_staged
-    try:
-        yield
-    finally:
-        RestoreDatapath._promote_run = run_sm
-        ChunkStore.promote_staged = staged_fn
+PROMOTE_RANGES = ("datapath.promote", "store.promote_staged")
 
 
 def profile_serve(serve, ranges=(), names=PORT_KERNEL_NAMES) -> dict:
@@ -1824,11 +1798,12 @@ def qwen3_server(dev):
                   device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
 
-    def serve(quant, trace=None):
+    def serve(quant, trace=None, telemetry=None):
         store = ChunkStore(chunk_size=16, quant=quant, default_tier="host", device=dev)
         eng = RealServingEngine(model, params, system="cacheflow", stages=2,
                                 chunk_size=256, l_delta=1024, max_batch=2,
-                                kvstore=store, datapath="fused", device=dev, seed=0)
+                                kvstore=store, datapath="fused", device=dev, seed=0,
+                                telemetry=telemetry)
         reqs = [Request(f"r{n}", 0.0, n, 64, decode_len=16)
                 for n in (512, 1536, 2560, 4096)]
         t0 = time.perf_counter()
@@ -1881,9 +1856,8 @@ def serve_phase(dev, card: str, profile: bool = False) -> dict:
     del eng_raw
     diff = first_difference(tokens_none, tokens_again)
     if profile:
-        with promote_ranges():
-            print(json.dumps({"profile": profile_serve(lambda: serve("int8"),
-                                                       ranges=PROMOTE_RANGES)}))
+        print(json.dumps({"profile": profile_serve(lambda: serve("int8", telemetry=True),
+                                                   ranges=PROMOTE_RANGES)}))
 
     ex = eng.executor
     strategies = {r.request_id: ex._live[r.request_id]["plans"][0].strategy
@@ -2173,18 +2147,18 @@ def observed_check(report: dict, launches: dict, metrics: str, timeline: str) ->
 
 def promote_profile(dev, card: str) -> dict:
     """qwen3-8b's int8 serve once untraced, then once traced with the
-    datapath's promotion inside PROMOTE_RANGES: the device time of what
-    ``_promote_run`` launches (its dequantize launches and copies, and the
-    pool's block writes under ``promote_staged``) and of each port kernel.
-    Uses only what older trees share, so the script copied into an older
-    checkout measures that tree the same way.  ``dequant_kernel`` is the
-    one-chunk dequantize kernel's name before it shared dequant_rows.cuh."""
+    datapath's promotion inside PROMOTE_RANGES, the program's spans (on
+    with telemetry): the device time of what ``_promote_run`` launches (its
+    dequantize launches and copies, and the pool's block writes under
+    ``promote_staged``) and of each port kernel.  Uses only interfaces older
+    trees share; a tree older than the spans has no such ranges, and its
+    ``ranges`` come out empty.  ``dequant_kernel`` is the one-chunk
+    dequantize kernel's name before it shared dequant_rows.cuh."""
     import torch
     _, _, _, serve = qwen3_server(dev)
     serve("int8")
-    with promote_ranges():
-        prof = profile_serve(lambda: serve("int8"), ranges=PROMOTE_RANGES,
-                             names=PORT_KERNEL_NAMES + ("dequant_kernel",))
+    prof = profile_serve(lambda: serve("int8", telemetry=True), ranges=PROMOTE_RANGES,
+                         names=PORT_KERNEL_NAMES + ("dequant_kernel",))
     torch.cuda.synchronize()
     out = dict(card=card, **{k: prof[k] for k in ("traced_wall_s", "device_s", "device_share",
                                                    "port_kernels", "ranges")})
@@ -4040,7 +4014,8 @@ def main(argv=None) -> int:
                          "(C, T, stages) it is built for; skip the serves")
     ap.add_argument("--promote-profile", action="store_true",
                     help="build, then trace one qwen3 int8 serve and print the device "
-                         "time of the datapath's promotion (runs on older trees too)")
+                         "time of the datapath's promotion, read from the program's "
+                         "spans (a tree without them prints the kernels alone)")
     ap.add_argument("--quant-only", action="store_true",
                     help="build, then check and time kv_quantize alone at the serve's "
                          "chunk through its public call (runs on older trees too)")

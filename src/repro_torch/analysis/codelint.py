@@ -22,6 +22,9 @@
   * ``metric-catalog``     — every metric name given as a literal to a
     ``.counter()`` / ``.gauge()`` / ``.histogram()`` call under
     ``src/repro_torch`` is in ``obs/registry.py``'s ``METRIC_CATALOG``.
+  * ``span-catalog``       — every span name given as a literal to an
+    ``obs.span()`` call under ``src/repro_torch`` is in
+    ``obs/registry.py``'s ``SPAN_CATALOG``.
   * ``no-reference-import`` — nothing under ``src/repro_torch`` and nothing in
     ``chip_smoke.py`` imports ``repro`` (the JAX package) or ``jax``, by an
     import statement or ``importlib.import_module``: the port and its
@@ -199,7 +202,8 @@ def check_unseeded_rng(paths: Sequence[Path]) -> List[CodeLintFinding]:
 
 
 # ---------------------------------------------------------------------------
-# trace-kinds and metric-catalog (the reference's rules on the port's files)
+# trace-kinds and metric-catalog (the reference's rules on the port's
+# files), and span-catalog, their twin for the port's spans
 # ---------------------------------------------------------------------------
 
 
@@ -285,6 +289,35 @@ def check_metric_catalog(registry_py: Path,
                     f"metric {node.args[0].value!r} used at a "
                     f".{node.func.attr}() call but not registered in "
                     f"METRIC_CATALOG (obs/registry.py)"))
+    return out
+
+
+def check_span_catalog(registry_py: Path,
+                       paths: Sequence[Path]) -> List[CodeLintFinding]:
+    registered = _literal_dict_keys(ast.parse(registry_py.read_text()),
+                                    "SPAN_CATALOG") \
+        if registry_py.exists() else None
+    if registered is None:
+        return [CodeLintFinding(
+            "span-catalog", str(registry_py), 1,
+            "no SPAN_CATALOG literal dict found — the span catalog is gone")]
+    out: List[CodeLintFinding] = []
+    for path in paths:
+        if not path.exists():
+            continue
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "span"
+                    and isinstance(node.func.value, ast.Name)
+                    and node.func.value.id == "obs" and node.args
+                    and isinstance(node.args[0], ast.Constant)
+                    and isinstance(node.args[0].value, str)
+                    and node.args[0].value not in registered):
+                out.append(CodeLintFinding(
+                    "span-catalog", str(path), node.lineno,
+                    f"span {node.args[0].value!r} opened at an obs.span() "
+                    f"call but not registered in SPAN_CATALOG "
+                    f"(obs/registry.py)"))
     return out
 
 
@@ -382,6 +415,7 @@ def run_all(root: Path) -> List[CodeLintFinding]:
                                     for p in sorted((src / d).glob("*.py"))])
     findings += check_trace_kinds(src / "core" / "trace.py")
     findings += check_metric_catalog(src / "obs" / "registry.py", files)
+    findings += check_span_catalog(src / "obs" / "registry.py", files)
     findings += check_no_reference_import(files + [smoke])
     findings += check_no_library_kernel(files)
     return findings

@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.kv_quant import kv_dequantize
 from repro_torch.kernels.kv_restore import kv_restore_scatter
 from repro_torch.models.model import resolve_device
@@ -72,27 +73,30 @@ class TransferStream:
         Asynchronous on CUDA: the consumer (current) stream waits on the
         copy's event; the host blocks only on the oldest in-flight put
         beyond ``depth``."""
-        while len(self._inflight) >= self.depth:
-            self._inflight.popleft()[0].synchronize()
+        if len(self._inflight) >= self.depth:
+            with obs.span("datapath.ring_wait"):
+                while len(self._inflight) >= self.depth:
+                    self._inflight.popleft()[0].synchronize()
+        nbytes = sum(v.numel() * v.element_size() for v in host.values())
         self.puts += 1
-        self.bytes_staged += sum(v.numel() * v.element_size()
-                                 for v in host.values())
-        if self.stream is None:
-            return {k: v.clone() for k, v in host.items()}
-        consumer = torch.cuda.current_stream(self.device)
-        # the device buffers are allocated on the copy stream; the
-        # record_stream below keeps the allocator from reusing them while
-        # the consumer's kernels may still read them
-        with torch.cuda.stream(self.stream):
-            dev = {k: v.to(self.device, non_blocking=True)
-                   for k, v in host.items()}
-            done = torch.cuda.Event()
-            done.record(self.stream)
-        consumer.wait_event(done)
-        for v in dev.values():
-            v.record_stream(consumer)
-        self._inflight.append((done, host))
-        return dev
+        self.bytes_staged += nbytes
+        with obs.span("datapath.put", None, nbytes):
+            if self.stream is None:
+                return {k: v.clone() for k, v in host.items()}
+            consumer = torch.cuda.current_stream(self.device)
+            # the device buffers are allocated on the copy stream; the
+            # record_stream below keeps the allocator from reusing them
+            # while the consumer's kernels may still read them
+            with torch.cuda.stream(self.stream):
+                dev = {k: v.to(self.device, non_blocking=True)
+                       for k, v in host.items()}
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            consumer.wait_event(done)
+            for v in dev.values():
+                v.record_stream(consumer)
+            self._inflight.append((done, host))
+            return dev
 
     def note(self, secs: float, nbytes: int):
         self.secs += secs
@@ -164,63 +168,70 @@ class RestoreDatapath:
         (updated in place and returned).  ``packed`` is the op's
         ``fetch_range_packed`` result; ``slot_span`` the contiguous
         attention-slot range the op's layer span owns."""
-        fields = [f for f in ATTN_FIELDS if f in cache]
-        s_lo, s_hi = slot_span
-        cs = store.chunk_size
-        stream = self.stream_for(channel)
-        a = cache["kpos"].shape[0]
-        s = cache[fields[0]].shape[2]
-        assert cache[fields[0]].shape[1] == 1, "datapath assumes B == 1"
-        dispatches = 0
-        moved = 0
-        t_begin = time.perf_counter() if self.measure else 0.0
+        with obs.span("datapath.restore_op") as op_span:
+            fields = [f for f in ATTN_FIELDS if f in cache]
+            s_lo, s_hi = slot_span
+            cs = store.chunk_size
+            stream = self.stream_for(channel)
+            a = cache["kpos"].shape[0]
+            s = cache[fields[0]].shape[2]
+            assert cache[fields[0]].shape[1] == 1, "datapath assumes B == 1"
+            dispatches = 0
+            moved = 0
+            t_begin = time.perf_counter() if self.measure else 0.0
 
-        for run in _split_runs(packed):
-            r0, r1 = run[0][0], run[-1][1]
-            form = run[0][2]
-            if form == "hbm":
-                staged, kpos_dev = self._gather_resident(run, fields)
-                scales_dev = None
-                self.resident_copies += 1
-            else:
-                host, nbytes = self._pack_host(run, fields, cs, a,
-                                               pin=stream.stream is not None)
-                dev = stream.put(host)
-                dispatches += 1                    # one staged copy per run
-                moved += nbytes
-                staged = {f: dev[f] for f in fields}
-                kpos_dev = dev["kpos"]
-                scales_dev = ({f: dev[f + "__s"] for f in fields}
-                              if form == "int8" else None)
-                self.kernel_launches += 1
+            for run in _split_runs(packed):
+                r0, r1 = run[0][0], run[-1][1]
+                form = run[0][2]
+                if form == "hbm":
+                    staged, kpos_dev = self._gather_resident(run, fields)
+                    scales_dev = None
+                    self.resident_copies += 1
+                else:
+                    with obs.span("datapath.pack") as sp:
+                        host, nbytes = self._pack_host(
+                            run, fields, cs, a, pin=stream.stream is not None)
+                        sp.count = nbytes
+                    dev = stream.put(host)
+                    dispatches += 1            # one staged copy per run
+                    moved += nbytes
+                    staged = {f: dev[f] for f in fields}
+                    kpos_dev = dev["kpos"]
+                    scales_dev = ({f: dev[f + "__s"] for f in fields}
+                                  if form == "int8" else None)
+                    self.kernel_launches += 1
 
-            # one fused (dequantizing) scatter per run, all fields in the
-            # launch; resident runs ride the same kernel as a raw copy.
-            # The views alias the live cache: the kernel writes in place.
-            views = [cache[f].view(a, s, -1) for f in fields]
-            kv_restore_scatter(
-                views, [staged[f] for f in fields],
-                None if scales_dev is None else [scales_dev[f]
-                                                 for f in fields],
-                t0=r0, slot_lo=s_lo, n_slots=s_hi - s_lo, chunk_size=cs)
-            dispatches += 1
-            # one kpos update per RUN, not per chunk x layer x field
-            cache["kpos"][s_lo:s_hi, r0:r1] = kpos_dev[s_lo:s_hi]
-            dispatches += 1
+                # one fused (dequantizing) scatter per run, all fields in the
+                # launch; resident runs ride the same kernel as a raw copy.
+                # The views alias the live cache: the kernel writes in place.
+                with obs.span("datapath.scatter"):
+                    views = [cache[f].view(a, s, -1) for f in fields]
+                    kv_restore_scatter(
+                        views, [staged[f] for f in fields],
+                        None if scales_dev is None else [scales_dev[f]
+                                                         for f in fields],
+                        t0=r0, slot_lo=s_lo, n_slots=s_hi - s_lo,
+                        chunk_size=cs)
+                    # one kpos update per RUN, not per chunk x layer x field
+                    cache["kpos"][s_lo:s_hi, r0:r1] = kpos_dev[s_lo:s_hi]
+                dispatches += 2
 
-            if form != "hbm":
-                self._promote_run(run, fields, cache, staged, scales_dev,
-                                  kpos_dev, store)
-            self.runs += 1
+                if form != "hbm":
+                    with obs.span("datapath.promote"):
+                        self._promote_run(run, fields, cache, staged,
+                                          scales_dev, kpos_dev, store)
+                self.runs += 1
 
-        self.ops += 1
-        self.last_op_dispatches = dispatches
-        if self.measure:
-            if cache["kpos"].is_cuda:
-                torch.cuda.synchronize(cache["kpos"].device)
-            secs = time.perf_counter() - t_begin
-            stream.note(secs, moved)
-            self._last_secs = secs
+            self.ops += 1
+            self.last_op_dispatches = dispatches
+            if self.measure:
+                if cache["kpos"].is_cuda:
+                    with obs.span("datapath.measure_wait"):
+                        torch.cuda.synchronize(cache["kpos"].device)
+                secs = time.perf_counter() - t_begin
+                stream.note(secs, moved)
+                self._last_secs = secs
+            op_span.count = moved
         return cache
 
     # ------------------------------------------------------------------

@@ -62,6 +62,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.cost_model import CostModel
 from repro_torch.core.plans import RequestPlan
 from repro_torch.core.scheduler import BatchScheduler, ScheduledOp
@@ -368,7 +369,8 @@ class RealBackend(EngineBackend):
             dp.measure = dur_fn is None
 
     def admit(self, req: EngineRequest) -> None:
-        self.executor.begin_restore(req.request_id, plans=req.plans)
+        with obs.span("engine.admit", req.request_id):
+            self.executor.begin_restore(req.request_id, plans=req.plans)
 
     def _run_op(self, op: ScheduledOp) -> float:
         if self.dur_fn is not None:
@@ -378,11 +380,14 @@ class RealBackend(EngineBackend):
             return max(1e-12, float(self.dur_fn(op)))
         t0 = time.perf_counter()
         self.executor.execute_op(op)
-        self.executor.sync()
+        with obs.span("engine.device_wait", op.request_id):
+            self.executor.sync()
         return max(1e-12, time.perf_counter() - t0)
 
     def compute_secs(self, op: ScheduledOp, req: EngineRequest) -> float:
-        return self._run_op(op)
+        with obs.span("engine.restore_compute", op.request_id,
+                      op.tokens[1] - op.tokens[0]):
+            return self._run_op(op)
 
     def io_channel_hint(self, channel: int) -> None:
         # load ops dispatched next ride this engine channel's physical
@@ -391,7 +396,8 @@ class RealBackend(EngineBackend):
 
     def io_secs(self, op: ScheduledOp, req: EngineRequest,
                 bandwidth: Optional[float]) -> float:
-        wall = self._run_op(op)
+        with obs.span("engine.restore_load", op.request_id):
+            wall = self._run_op(op)
         if self.dur_fn is None:
             # measured mode: charge the channel the datapath's measured
             # transfer seconds for THIS op (staging + dequant-scatter),
@@ -404,26 +410,32 @@ class RealBackend(EngineBackend):
         return wall
 
     def prefill_secs(self, op: ScheduledOp, req: EngineRequest) -> float:
-        return self._run_op(op)
+        with obs.span("engine.suffix_prefill", op.request_id,
+                      op.tokens[1] - op.tokens[0]):
+            return self._run_op(op)
 
     def decode_secs(self, reqs: List[EngineRequest]) -> float:
         rids = [r.request_id for r in reqs]
-        if self.dur_fn is not None:
+        with obs.span("engine.decode_step", None, len(rids)):
+            if self.dur_fn is not None:
+                self.executor.decode_step_batch(rids)
+                # the op carries the FULL participant list: a synthetic
+                # duration may depend on batch composition
+                # (CostModel.t_decode_step does)
+                op = ScheduledOp("decode", rids[0], -1, 0, (0, len(rids)),
+                                 (0, 0), batch=tuple(rids))
+                return max(1e-12, float(self.dur_fn(op)))
+            t0 = time.perf_counter()
             self.executor.decode_step_batch(rids)
-            # the op carries the FULL participant list: a synthetic duration
-            # may depend on batch composition (CostModel.t_decode_step does)
-            op = ScheduledOp("decode", rids[0], -1, 0, (0, len(rids)), (0, 0),
-                             batch=tuple(rids))
-            return max(1e-12, float(self.dur_fn(op)))
-        t0 = time.perf_counter()
-        self.executor.decode_step_batch(rids)
-        self.executor.sync()
-        return max(1e-12, time.perf_counter() - t0)
+            with obs.span("engine.device_wait"):
+                self.executor.sync()
+            return max(1e-12, time.perf_counter() - t0)
 
     def io_hit_secs(self, op: ScheduledOp, req: EngineRequest) -> float:
         # resident chunks: the load still executes (HBM-local copy into the
         # live cache) but occupies no transfer-channel time on the clock
-        self.executor.execute_op(op)
+        with obs.span("engine.restore_load_hit", op.request_id):
+            self.executor.execute_op(op)
         dp = getattr(self.executor, "datapath", None)
         if dp is not None:
             dp.pop_measured_secs()     # device-local: nothing to charge
@@ -464,12 +476,14 @@ class RealBackend(EngineBackend):
 
     def restore_done(self, req: EngineRequest) -> None:
         # verify BEFORE prefill/decode append to the restored cache
-        self.executor.finalize_restore(req.request_id)
-        if self.verify:
-            if self.verify_atol is not None:
-                self.executor.verify(req.request_id, atol=self.verify_atol)
-            else:
-                self.executor.verify(req.request_id)
+        with obs.span("engine.restore_done", req.request_id):
+            self.executor.finalize_restore(req.request_id)
+            if self.verify:
+                if self.verify_atol is not None:
+                    self.executor.verify(req.request_id,
+                                         atol=self.verify_atol)
+                else:
+                    self.executor.verify(req.request_id)
 
 
 # ---------------------------------------------------------------------------
@@ -626,7 +640,24 @@ class EngineCore:
             trace: Optional["TraceRecorder"] = None) -> EngineResult:
         """Drive the batch to completion.  ``trace``, when given, is a
         ``repro_torch.core.trace.TraceRecorder`` that captures every
-        scheduling decision as a replayable ``ScheduleTrace``."""
+        scheduling decision as a replayable ``ScheduleTrace``.  With
+        telemetry on, its span recorder is the current one for the run
+        (``obs.span`` sites record into it) and is cleared when the run
+        ends, by an exception too."""
+        tel = None
+        if self.telemetry:
+            tel = self.telemetry if isinstance(self.telemetry, obs.Telemetry) \
+                else obs.Telemetry()
+            tel.begin(self)
+        self.last_telemetry = tel
+        prev = obs.spans.activate(tel.spans if tel is not None else None)
+        try:
+            return self._run(requests, trace, tel)
+        finally:
+            obs.spans.activate(prev)
+
+    def _run(self, requests: List[EngineRequest],
+             trace: Optional["TraceRecorder"], tel) -> EngineResult:
         empty = [r.request_id for r in requests if not r.plans]
         if empty:
             if self.strict:
@@ -642,15 +673,6 @@ class EngineCore:
             from repro_torch.analysis.sanitizer import EngineSanitizer
             san = EngineSanitizer(self)
         self.last_sanitizer = san
-        tel = None
-        if self.telemetry:
-            # lazy import, same as the sanitizer: repro_torch.obs.telemetry
-            # never loads on the default (telemetry off) path
-            from repro_torch.obs.telemetry import Telemetry
-            tel = self.telemetry if isinstance(self.telemetry, Telemetry) \
-                else Telemetry()
-            tel.begin(self)
-        self.last_telemetry = tel
         # the candidate channel's duration multiplier, set by the dispatch
         # loop before each next_io() pass so the benefit gate prices the
         # transfer at the channel it would actually ride (a 10x-degraded

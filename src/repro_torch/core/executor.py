@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.boundary import BoundaryStore, StoredRequest, stage_bounds
 from repro_torch.core.plans import RequestPlan, make_request_plans
 from repro_torch.core.scheduler import ScheduledOp
@@ -246,46 +247,47 @@ class RestorationExecutor:
         return self.store.read_boundary(rid, stage)[:, t0:t1]
 
     def _exec_compute(self, op: ScheduledOp):
-        m = self.model
-        live = self._live[op.request_id]
-        cache = live["cache"]
-        t0, t1 = op.tokens
-        lo, hi = op.layers
-        pos = _positions(t0, t1)
-        plan = _plan_of(live, op)
-        if plan.strategy == "token":
-            x = self._stage_input(op.request_id, op.stage, t0, t1)
-            for i in range(lo, hi):
-                x, cache = m.layer_chunk(self.params, i, x, pos, cache)
-        else:
-            # layer-wise: the full-prefix activation ENTERING each unit is
-            # snapshotted per unit (not a single running value) so an op
-            # aborted by preemption after it already ran re-executes from
-            # the same input — idempotent for any abort/resume interleaving.
-            # Only the last two snapshots are live: unit u-1 can never run
-            # again once unit u dispatches (its completion is permanent).
-            acts = live["act"]
-            key = (op.stage, op.unit)
-            if key not in acts:
-                assert op.unit == 0, key
-                acts[key] = self._stage_input(op.request_id, op.stage,
-                                              0, plan.n_tokens)
-            # the unit's layers run over the prefix in remember's chunks
-            # (the reference takes the whole prefix in one pass): a GEMM
-            # library may pick another kernel, and another summation order,
-            # for another row count, and verify needs remember's arithmetic
-            outs = []
-            for c0 in range(t0, t1, self.chunk_size):
-                c1 = min(t1, c0 + self.chunk_size)
-                x = acts[key][:, c0 - t0:c1 - t0]
+        with obs.span("executor.compute", op.request_id):
+            m = self.model
+            live = self._live[op.request_id]
+            cache = live["cache"]
+            t0, t1 = op.tokens
+            lo, hi = op.layers
+            pos = _positions(t0, t1)
+            plan = _plan_of(live, op)
+            if plan.strategy == "token":
+                x = self._stage_input(op.request_id, op.stage, t0, t1)
                 for i in range(lo, hi):
-                    x, cache = m.layer_chunk(self.params, i, x,
-                                             _positions(c0, c1), cache)
-                outs.append(x)
-            x = torch.cat(outs, dim=1)
-            acts[(op.stage, op.unit + 1)] = x
-            acts.pop((op.stage, op.unit - 1), None)
-        live["cache"] = cache
+                    x, cache = m.layer_chunk(self.params, i, x, pos, cache)
+            else:
+                # layer-wise: the full-prefix activation ENTERING each unit is
+                # snapshotted per unit (not a single running value) so an op
+                # aborted by preemption after it already ran re-executes from
+                # the same input — idempotent for any abort/resume interleaving.
+                # Only the last two snapshots are live: unit u-1 can never run
+                # again once unit u dispatches (its completion is permanent).
+                acts = live["act"]
+                key = (op.stage, op.unit)
+                if key not in acts:
+                    assert op.unit == 0, key
+                    acts[key] = self._stage_input(op.request_id, op.stage,
+                                                  0, plan.n_tokens)
+                # the unit's layers run over the prefix in remember's chunks
+                # (the reference takes the whole prefix in one pass): a GEMM
+                # library may pick another kernel, and another summation order,
+                # for another row count, and verify needs remember's arithmetic
+                outs = []
+                for c0 in range(t0, t1, self.chunk_size):
+                    c1 = min(t1, c0 + self.chunk_size)
+                    x = acts[key][:, c0 - t0:c1 - t0]
+                    for i in range(lo, hi):
+                        x, cache = m.layer_chunk(self.params, i, x,
+                                                 _positions(c0, c1), cache)
+                    outs.append(x)
+                x = torch.cat(outs, dim=1)
+                acts[(op.stage, op.unit + 1)] = x
+                acts.pop((op.stage, op.unit - 1), None)
+            live["cache"] = cache
 
     def _attn_slot_span(self, lo: int, hi: int) -> Optional[Tuple[int, int]]:
         """Contiguous attention-slot range owned by layers [lo, hi) — slot
@@ -398,27 +400,34 @@ class RestorationExecutor:
         t0, t1 = op.tokens
         lo, hi = op.layers
         positions = _positions(t0, t1)
-        if "prefill_x" not in live:
-            # first stage: make room for suffix + decode tail, embed suffix
-            live["cache"] = grow_cache(m.cfg, live["cache"],
-                                       req.n_tokens + (t1 - t0) + decode_len)
-            live["prefill_x"] = m.embed(self.params, new_inputs, positions)
-        x, cache = m.stack_chunk(self.params, live["prefill_x"], positions,
-                                 live["cache"], lo, hi)
-        live["prefill_x"], live["cache"] = x, cache
-        if hi == m.cfg.num_layers:
+        rid = op.request_id
+        last = hi == m.cfg.num_layers
+        with obs.span("executor.prefill", rid):
+            if "prefill_x" not in live:
+                # first stage: make room for suffix + decode tail, embed
+                # suffix
+                live["cache"] = grow_cache(
+                    m.cfg, live["cache"], req.n_tokens + (t1 - t0) + decode_len)
+                live["prefill_x"] = m.embed(self.params, new_inputs, positions)
+            x, cache = m.stack_chunk(self.params, live["prefill_x"], positions,
+                                     live["cache"], lo, hi)
+            live["prefill_x"], live["cache"] = x, cache
+            if last:
+                logits = m.unembed(self.params, x[:, -1:])[:, 0]
+        if last:
             # last pipeline stage: the suffix's final activation gives the
             # request's FIRST output token
-            logits = m.unembed(self.params, x[:, -1:])[:, 0]
             live["first_logits"] = logits
             live["last_logits"] = logits
-            live["tokens_out"] = [int(torch.argmax(logits[0]))]
+            with obs.span("executor.token_read", rid):
+                live["tokens_out"] = [int(torch.argmax(logits[0]))]
             live["step_logits"] = []
             live["pos"] = t1
             # every layer's suffix KV is now in the contiguous cache:
             # append it through the block table (CoW against forks)
             if "kpos" in live["cache"]:
-                self._paged_write(live, t0, t1)
+                with obs.span("executor.paged_write", rid):
+                    self._paged_write(live, t0, t1)
 
     # -- batched decode (one token per request per step) -------------------
     def decode_step_batch(self, rids: List[str]):
@@ -438,26 +447,31 @@ class RestorationExecutor:
                 live["tokens_out"] = []
                 live["step_logits"] = []
                 live["pos"] = req.n_tokens
-            if cfg.input_mode == "tokens":
-                # greedy feed; argmax ties resolve to the first index, as
-                # jnp.argmax
-                inp = torch.argmax(live["last_logits"], dim=-1).to(torch.int32)
-            else:
-                # embedding frontends have no token feedback path: a
-                # pseudo-embedding keyed on the position, from a host
-                # generator seeded with it (not the reference's bits)
-                gen = torch.Generator().manual_seed(live["pos"])
-                inp = torch.randn((1, cfg.d_model), generator=gen)
-            logits, cache = m.decode_step(self.params, inp, live["cache"],
-                                          live["pos"])
+            with obs.span("executor.decode_forward", rid):
+                if cfg.input_mode == "tokens":
+                    # greedy feed; argmax ties resolve to the first index,
+                    # as jnp.argmax
+                    inp = torch.argmax(live["last_logits"],
+                                       dim=-1).to(torch.int32)
+                else:
+                    # embedding frontends have no token feedback path: a
+                    # pseudo-embedding keyed on the position, from a host
+                    # generator seeded with it (not the reference's bits)
+                    gen = torch.Generator().manual_seed(live["pos"])
+                    inp = torch.randn((1, cfg.d_model), generator=gen)
+                logits, cache = m.decode_step(self.params, inp, live["cache"],
+                                              live["pos"])
             live["cache"] = cache
             live["last_logits"] = logits
             if "kpos" in cache:
                 # append the new token's KV through the block table: a tail
                 # block shared with a forked sibling copies here (CoW)
-                self._paged_write(live, live["pos"], live["pos"] + 1)
+                with obs.span("executor.paged_write", rid):
+                    self._paged_write(live, live["pos"], live["pos"] + 1)
             live["pos"] += 1
-            live["tokens_out"].append(int(torch.argmax(logits[0])))
+            # blocks until this request's forward has run on the device
+            with obs.span("executor.token_read", rid):
+                live["tokens_out"].append(int(torch.argmax(logits[0])))
             live["step_logits"].append(logits)
 
     # ------------------------------------------------------------------

@@ -43,9 +43,10 @@ and the port's static lint pass runs with
 Observability (see DESIGN.md §15): ``--telemetry`` (or
 ``CACHEFLOW_TELEMETRY=1``) collects the engine-wide metrics registry
 (queue depth, batch sizes, gate outcomes, per-channel GB/s, tier
-occupancy, per-request phase timestamps) into the report;
-``--metrics-out m.json`` writes the snapshot to a file and
-``--timeline-out t.json`` exports a Chrome trace-event timeline loadable
+occupancy, per-request phase timestamps) into the report, and in real
+mode the wall-clock spans of each layer boundary (``repro_torch.obs``'s
+``SPAN_CATALOG``); ``--metrics-out m.json`` writes the snapshot to a file
+and ``--timeline-out t.json`` exports a Chrome trace-event timeline loadable
 in https://ui.perfetto.dev.  Any captured trace renders offline with
   PYTHONPATH=src python -m repro_torch.obs.timeline t.json
 """
@@ -312,8 +313,8 @@ def main(argv=None):
     ap.add_argument("--metrics-out", metavar="PATH",
                     help="write the full telemetry snapshot (metrics + "
                          "gauge time series + per-request phase "
-                         "transitions) to PATH as strict JSON; implies "
-                         "--telemetry")
+                         "transitions, and a real serve's spans) to PATH "
+                         "as strict JSON; implies --telemetry")
     ap.add_argument("--timeline-out", metavar="PATH",
                     help="export the run's schedule as Chrome trace-event "
                          "JSON loadable in https://ui.perfetto.dev — one "

@@ -17,7 +17,9 @@ Every metric name must be declared in :data:`METRIC_CATALOG` with its type,
 label schema and owning layer — ``repro_torch.analysis.codelint`` statically
 checks that every metric-name literal in the port is registered here (the same
 pattern as the ``EVENT_KINDS`` trace-schema rule), and the registry enforces
-the type and exact label keys at instantiation time.
+the type and exact label keys at instantiation time.  Wall-clock span names
+(``obs/spans.py``, the port's own, not the reference's) are declared the
+same way in :data:`SPAN_CATALOG`.
 """
 from __future__ import annotations
 
@@ -91,6 +93,81 @@ METRIC_CATALOG = {
         "layer": "storage/chunkstore"},
     "storage.bytes_total": {
         "type": "counter", "labels": ("op",), "layer": "storage/chunkstore"},
+}
+
+
+#: The engine loop's top-level ops that end by waiting for the device.
+_SYNCED_OPS = ("engine.restore_compute", "engine.restore_load",
+               "engine.suffix_prefill", "engine.decode_step")
+_LOAD_OPS = ("engine.restore_load", "engine.restore_load_hit")
+
+#: The span catalog (``obs/spans.py``): name -> {layer, parent, wait}.
+#: ``parent`` holds the names a span may nest in, () for a top-level op of
+#: the engine loop (a ``RealBackend`` call); ``wait`` marks a span in which
+#: the host blocks until the device has run what it issued.  A PURE LITERAL
+#: like METRIC_CATALOG: codelint's span-catalog rule parses its keys.
+SPAN_CATALOG = {
+    # ---- engine core (core/engine_core.py, RealBackend) ----
+    "engine.admit": {"layer": "core/engine_core", "parent": (), "wait": False},
+    "engine.restore_compute": {
+        "layer": "core/engine_core", "parent": (), "wait": False},
+    "engine.restore_load": {
+        "layer": "core/engine_core", "parent": (), "wait": False},
+    "engine.restore_load_hit": {
+        "layer": "core/engine_core", "parent": (), "wait": False},
+    "engine.restore_done": {
+        "layer": "core/engine_core", "parent": (), "wait": False},
+    "engine.suffix_prefill": {
+        "layer": "core/engine_core", "parent": (), "wait": False},
+    "engine.decode_step": {
+        "layer": "core/engine_core", "parent": (), "wait": False},
+    "engine.device_wait": {
+        "layer": "core/engine_core", "parent": _SYNCED_OPS, "wait": True},
+    # ---- executor (core/executor.py) ----
+    "executor.compute": {
+        "layer": "core/executor", "parent": ("engine.restore_compute",),
+        "wait": False},
+    "executor.prefill": {
+        "layer": "core/executor", "parent": ("engine.suffix_prefill",),
+        "wait": False},
+    "executor.decode_forward": {
+        "layer": "core/executor", "parent": ("engine.decode_step",),
+        "wait": False},
+    "executor.paged_write": {
+        "layer": "core/executor",
+        "parent": ("engine.decode_step", "engine.suffix_prefill"),
+        "wait": False},
+    "executor.token_read": {
+        "layer": "core/executor",
+        "parent": ("engine.decode_step", "engine.suffix_prefill"),
+        "wait": True},
+    # ---- restoration data path (core/datapath.py) ----
+    "datapath.restore_op": {
+        "layer": "core/datapath", "parent": _LOAD_OPS, "wait": False},
+    "datapath.pack": {
+        "layer": "core/datapath", "parent": ("datapath.restore_op",),
+        "wait": False},
+    "datapath.ring_wait": {
+        "layer": "core/datapath", "parent": ("datapath.restore_op",),
+        "wait": True},
+    "datapath.put": {
+        "layer": "core/datapath", "parent": ("datapath.restore_op",),
+        "wait": False},
+    "datapath.scatter": {
+        "layer": "core/datapath", "parent": ("datapath.restore_op",),
+        "wait": False},
+    "datapath.promote": {
+        "layer": "core/datapath", "parent": ("datapath.restore_op",),
+        "wait": False},
+    "datapath.measure_wait": {
+        "layer": "core/datapath", "parent": ("datapath.restore_op",),
+        "wait": True},
+    # ---- chunk store (storage/chunkstore.py) ----
+    "store.fetch": {
+        "layer": "storage/chunkstore", "parent": _LOAD_OPS, "wait": False},
+    "store.promote_staged": {
+        "layer": "storage/chunkstore", "parent": ("datapath.promote",),
+        "wait": False},
 }
 
 

@@ -22,7 +22,10 @@ wall seconds in real mode):
     from whichever KV store the engine runs against,
   * per-request phase-transition timestamps
     (arrive → admit → restored → first_token → finish, plus
-    preempt/resume), the raw material for the timeline's flow events.
+    preempt/resume), the raw material for the timeline's flow events,
+  * on the wall clock, not the engine's: the spans of the served path's
+    layer boundaries (``tel.spans``, ``obs/spans.py``), which real-mode
+    sites record while this telemetry's run is on.
 
 ``snapshot()`` is the exposition API: a plain-JSON dict carried by
 ``ServingReport.telemetry``, written by ``serve --metrics-out`` and
@@ -34,6 +37,7 @@ import os
 from typing import Dict, List, Optional
 
 from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.obs.spans import SpanRecorder
 
 
 def telemetry_env_enabled() -> bool:
@@ -50,6 +54,7 @@ class Telemetry:
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
         self.registry = registry or MetricsRegistry()
+        self.spans = SpanRecorder()
         self.core = None
         # rid -> [[t, phase], ...] in engine order; phases are the
         # lifecycle edges: arrive, admit, preempt, resume, restored,
@@ -231,7 +236,13 @@ class Telemetry:
         """The exposition API: plain-JSON metrics + per-request phase
         timestamps.  Carried by ``ServingReport.telemetry``, written by
         ``serve --metrics-out``, consumed by the benchmarks and the
-        timeline exporter's counter tracks."""
-        return {"metrics": self.registry.snapshot(),
-                "phases": {rid: [list(p) for p in edges]
-                           for rid, edges in sorted(self.phases.items())}}
+        timeline exporter's counter tracks.  A ``"spans"`` key (the span
+        tuples as lists, and the runs' clock anchors) only when a span was
+        recorded, so a simulation's snapshot is the reference's."""
+        out = {"metrics": self.registry.snapshot(),
+               "phases": {rid: [list(p) for p in edges]
+                          for rid, edges in sorted(self.phases.items())}}
+        if self.spans:
+            out["spans"] = {"records": [list(s) for s in self.spans],
+                            "anchors": [list(a) for a in self.spans.anchors]}
+        return out

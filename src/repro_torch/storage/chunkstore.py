@@ -72,6 +72,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize
 from repro_torch.models.kvcache import BlockPool
 from repro_torch.models.model import resolve_device
@@ -503,12 +504,13 @@ class ChunkStore:
             return None
         cs = self.chunk_size
         out = []
-        for ci in range(t0 // cs, min(len(keys), -(-t1 // cs))):
-            got = self.fetch_packed(keys[ci])
-            if got is None:
-                return None
-            c0, c1 = self.chunks[keys[ci]].tokens
-            out.append((c0, c1, got[0], got[1], keys[ci]))
+        with obs.span("store.fetch", rid):
+            for ci in range(t0 // cs, min(len(keys), -(-t1 // cs))):
+                got = self.fetch_packed(keys[ci])
+                if got is None:
+                    return None
+                c0, c1 = self.chunks[keys[ci]].tokens
+                out.append((c0, c1, got[0], got[1], keys[ci]))
         return out
 
     def promote_staged(self, key: str, dev: dict) -> Optional[str]:
@@ -518,13 +520,14 @@ class ChunkStore:
         fused restore puts each chunk on the wire exactly once.  ``dev``
         must be the dequantized device payload trimmed to the chunk's real
         token extent."""
-        if self.core.tier_of(key) == "hbm":
-            return "hbm"
-        self._staged_dev[key] = dev
-        try:
-            return self.core.promote(key, "hbm")
-        finally:
-            self._staged_dev.pop(key, None)
+        with obs.span("store.promote_staged"):
+            if self.core.tier_of(key) == "hbm":
+                return "hbm"
+            self._staged_dev[key] = dev
+            try:
+                return self.core.promote(key, "hbm")
+            finally:
+                self._staged_dev.pop(key, None)
 
     # ------------------------------------------------------------------
     # Engine-core kvstore protocol (keyed by request id)

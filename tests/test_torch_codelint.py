@@ -13,6 +13,7 @@ from repro_torch.analysis.codelint import (check_kernel_oracles,
                                            check_metric_catalog,
                                            check_no_library_kernel,
                                            check_no_reference_import,
+                                           check_span_catalog,
                                            check_trace_kinds,
                                            check_unseeded_rng, main, run_all)
 
@@ -143,6 +144,22 @@ def test_metric_catalog(tmp_path):
     assert _rules(findings) == ["metric-catalog"] and findings[0].line == 2
     mod.write_text('r.counter("engine.admissions_total").inc()\n')
     assert check_metric_catalog(reg, [mod]) == []
+
+
+def test_span_catalog(tmp_path):
+    reg = tmp_path / "registry.py"
+    reg.write_text('SPAN_CATALOG = {"engine.decode_step": {"parent": ()}}\n')
+    mod = tmp_path / "mod.py"
+    mod.write_text('with obs.span("engine.decode_step", None, 4):\n    pass\n'
+                   'with obs.span("engine.warp_jump", rid):\n    pass\n'
+                   'm.span(1)\n')
+    findings = check_span_catalog(reg, [mod])
+    assert _rules(findings) == ["span-catalog"] and findings[0].line == 3
+    assert "engine.warp_jump" in findings[0].message
+    mod.write_text('with obs.span("engine.decode_step"):\n    pass\n')
+    assert check_span_catalog(reg, [mod]) == []
+    reg.write_text('METRIC_CATALOG = {}\n')
+    assert "SPAN_CATALOG" in check_span_catalog(reg, [mod])[0].message
 
 
 # ---------------------------------------------------------------------------
