@@ -13,8 +13,11 @@ the full-prefill ground truth.  The simulator measures the schedule; this
 executor proves its *correctness* (restored KV ≡ recomputed KV for any
 legal op interleaving — a property test randomises the interleaving).
 
-Requests are single-sequence (B = 1) as in the serving engine; decode
-batches across requests by stepping each live cache in arrival order.
+Requests are single-sequence (B = 1) as in the serving engine.  A decode
+step runs one forward for all its requests (``Model.decode_rows``: every
+layer issued once for the step, each request's attention over its own
+cache); a stack with per-request carried state (recurrent, RWKV), a
+capacity-limited MoE or a DTensor cache steps each request on its own.
 """
 from __future__ import annotations
 
@@ -432,47 +435,87 @@ class RestorationExecutor:
     # -- batched decode (one token per request per step) -------------------
     def decode_step_batch(self, rids: List[str]):
         """One engine decode step: append one generated token to every
-        listed request's live cache (greedy feed of its previous output)."""
-        m, cfg = self.model, self.model.cfg
-        for rid in rids:
-            live = self._live[rid]
+        listed request's live cache (greedy feed of its previous output).
+        A stack the model decodes as rows (``Model.can_decode_rows``) runs
+        one forward for all the requests; one with per-request carried
+        state (recurrent, RWKV), a capacity-limited MoE or a DTensor cache
+        steps each request's cache on its own, in arrival order."""
+        lives = [self._decode_live(rid) for rid in rids]
+        if self.model.can_decode_rows([live["cache"] for live in lives]):
+            self._decode_rows(rids, lives)
+        else:
+            for rid, live in zip(rids, lives):
+                self._decode_one(rid, live)
+
+    def _decode_live(self, rid: str) -> dict:
+        """The request's live state, seeded for decode on its first step."""
+        live = self._live[rid]
+        if "pos" not in live:
+            # decode-only lifecycle (no suffix): seed from the stored
+            # prefix's final logits and grow room for the decode tail
             req: StoredRequest = live["req"]
-            if "pos" not in live:
-                # decode-only lifecycle (no suffix): seed from the stored
-                # prefix's final logits and grow room for the decode tail
-                _, decode_len = self._suffix.get(rid, (None, 0))
-                live["cache"] = grow_cache(cfg, live["cache"],
-                                           req.n_tokens + max(1, decode_len))
-                live["last_logits"] = req.final_logits
-                live["tokens_out"] = []
-                live["step_logits"] = []
-                live["pos"] = req.n_tokens
-            with obs.span("executor.decode_forward", rid):
-                if cfg.input_mode == "tokens":
-                    # greedy feed; argmax ties resolve to the first index,
-                    # as jnp.argmax
-                    inp = torch.argmax(live["last_logits"],
-                                       dim=-1).to(torch.int32)
-                else:
-                    # embedding frontends have no token feedback path: a
-                    # pseudo-embedding keyed on the position, from a host
-                    # generator seeded with it (not the reference's bits)
-                    gen = torch.Generator().manual_seed(live["pos"])
-                    inp = torch.randn((1, cfg.d_model), generator=gen)
-                logits, cache = m.decode_step(self.params, inp, live["cache"],
-                                              live["pos"])
-            live["cache"] = cache
-            live["last_logits"] = logits
-            if "kpos" in cache:
-                # append the new token's KV through the block table: a tail
-                # block shared with a forked sibling copies here (CoW)
+            _, decode_len = self._suffix.get(rid, (None, 0))
+            live["cache"] = grow_cache(self.model.cfg, live["cache"],
+                                       req.n_tokens + max(1, decode_len))
+            live["last_logits"] = req.final_logits
+            live["tokens_out"] = []
+            live["step_logits"] = []
+            live["pos"] = req.n_tokens
+        return live
+
+    def _decode_input(self, live: dict):
+        """The request's next decode input: its last served token (greedy
+        feed; argmax ties resolve to the first index, as jnp.argmax) or, on
+        an embedding frontend (no token feedback path), a pseudo-embedding
+        keyed on the position from a host generator seeded with it (not
+        the reference's bits).  (1,) int or (1, D) on the host."""
+        if self.model.cfg.input_mode != "tokens":
+            gen = torch.Generator().manual_seed(live["pos"])
+            return torch.randn((1, self.model.cfg.d_model), generator=gen)
+        toks = live["tokens_out"]
+        tok = toks[-1] if toks else int(torch.argmax(live["last_logits"][0]))
+        return torch.tensor([tok], dtype=torch.int32)
+
+    def _decode_rows(self, rids: List[str], lives: List[dict]):
+        """One forward for the step's requests: each writes its token's KV
+        into its own cache; the tokens are read in one sync."""
+        with obs.span("executor.decode_forward", None, len(rids)):
+            inp = torch.cat([self._decode_input(live) for live in lives])
+            logits = self.model.decode_rows(self.params, inp,
+                                            [live["cache"] for live in lives],
+                                            [live["pos"] for live in lives])
+        for rid, live in zip(rids, lives):
+            if "kpos" in live["cache"]:
                 with obs.span("executor.paged_write", rid):
                     self._paged_write(live, live["pos"], live["pos"] + 1)
             live["pos"] += 1
-            # blocks until this request's forward has run on the device
-            with obs.span("executor.token_read", rid):
-                live["tokens_out"].append(int(torch.argmax(logits[0])))
-            live["step_logits"].append(logits)
+        # blocks until the step's forward has run on the device
+        with obs.span("executor.token_read", None, len(rids)):
+            toks = torch.argmax(logits, dim=-1).tolist()
+        for i, (live, tok) in enumerate(zip(lives, toks)):
+            # a copy: a finished request's row must not pin its batch-mates'
+            row = logits[i:i + 1].clone()
+            live["last_logits"] = row
+            live["tokens_out"].append(tok)
+            live["step_logits"].append(row)
+
+    def _decode_one(self, rid: str, live: dict):
+        """One request's decode step on its own (B = 1)."""
+        with obs.span("executor.decode_forward", rid):
+            logits, cache = self.model.decode_step(self.params, self._decode_input(live),
+                                                   live["cache"], live["pos"])
+        live["cache"] = cache
+        live["last_logits"] = logits
+        if "kpos" in cache:
+            # append the new token's KV through the block table: a tail
+            # block shared with a forked sibling copies here (CoW)
+            with obs.span("executor.paged_write", rid):
+                self._paged_write(live, live["pos"], live["pos"] + 1)
+        live["pos"] += 1
+        # blocks until this request's forward has run on the device
+        with obs.span("executor.token_read", rid):
+            live["tokens_out"].append(int(torch.argmax(logits[0])))
+        live["step_logits"].append(logits)
 
     # ------------------------------------------------------------------
     def restore(self, rid: str, *, l_delta: int = 0, strategy: Optional[str] = None,

@@ -1,5 +1,6 @@
 """GQA / MQA / windowed attention: the full-sequence path and the chunked
-path against a kpos-addressed cache.
+path against a kpos-addressed cache, and the decode of many requests'
+tokens in one pass (``attention_rows``).
 
 Counterpart of ``repro.models.attention``.  The chunked path is the
 restoration recompute step, suffix prefill and decode: queries of a chunk
@@ -106,6 +107,12 @@ def attention_chunk(cfg: ModelConfig, params: dict, x: torch.Tensor,
     dev = x.device
     pos_dev = torch.arange(p0, p0 + c, dtype=torch.int32, device=dev).expand(b, c)
     q, k, v = project_qkv(cfg, params, x, pos_dev)
+    scale = 1.0 / (cfg.qk_head_dim ** 0.5)
+    if c == 1 and not _is_dtensor(k_cache):
+        out = _decode_row(cfg, q[:, 0], k[:, 0], v[:, 0], k_cache, v_cache, kpos, p0,
+                         scale)
+        return (out.reshape(b, c, cfg.num_heads * cfg.head_dim) @ params["wo"].to(x.dtype),
+                k_cache, v_cache, kpos)
     # --- write chunk KV into the cache (ring buffer if windowed) ---
     if _is_dtensor(k_cache):
         slots = [(p0 + i) % s_cache if cfg.attn_window else p0 + i for i in range(c)]
@@ -121,11 +128,43 @@ def attention_chunk(cfg: ModelConfig, params: dict, x: torch.Tensor,
         k_cache[:, p0:p0 + c] = k.to(k_cache.dtype)
         v_cache[:, p0:p0 + c] = v.to(v_cache.dtype)
         kpos[p0:p0 + c] = pos_dev[0]
-    scale = 1.0 / (cfg.qk_head_dim ** 0.5)
     kc, vc = k_cache.to(q.dtype), v_cache.to(q.dtype)
     out = _attend(cfg, q, kc, vc, kpos, p0, scale)
     out = merge_dims(out, b, c, cfg.num_heads * cfg.head_dim)
     return out @ params["wo"].to(x.dtype), k_cache, v_cache, kpos
+
+
+def _decode_row(cfg: ModelConfig, q, k, v, k_cache, v_cache, kpos, p0: int,
+               scale: float):
+    """One decode token over one request's cache: its K, V and position
+    written at slot ``p0`` (the ring slot if windowed), then ``flash_decode``
+    over the slot.  q (B, Hq, Dh), k/v (B, Hk, Dh); k_cache/v_cache
+    (B, S, Hk, Dh) and kpos (S,) are updated IN PLACE.  Returns (B, Hq, Dh)."""
+    slot = p0 % k_cache.shape[1] if cfg.attn_window else p0
+    k_cache[:, slot] = k.to(k_cache.dtype)
+    v_cache[:, slot] = v.to(v_cache.dtype)
+    kpos[slot] = p0
+    return flash_decode(q.contiguous(), k_cache.to(q.dtype).contiguous(),
+                        v_cache.to(q.dtype).contiguous(), kpos, p0, scale=scale,
+                        window=cfg.attn_window)
+
+
+def attention_rows(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                   pos_dev: torch.Tensor, positions, views):
+    """One decode token for each of B requests, each over its own cache.
+
+    x: (B, 1, D); pos_dev: (B, 1) int positions on x's device, ``positions``
+    the same as host ints; ``views[r]``: {"k", "v", "kpos"} views of row
+    r's layer slot ((1, S_r, Hk, Dh), (S_r,)), its own length, updated IN
+    PLACE.  The projections run once for the B rows; each row goes through
+    ``_decode_row`` on its own cache.  Returns (B, 1, D)."""
+    b = x.shape[0]
+    q, k, v = project_qkv(cfg, params, x, pos_dev)
+    scale = 1.0 / (cfg.qk_head_dim ** 0.5)
+    out = torch.cat([_decode_row(cfg, q[r:r + 1, 0], k[r:r + 1, 0], v[r:r + 1, 0],
+                                view["k"], view["v"], view["kpos"], p0, scale)
+                     for r, (view, p0) in enumerate(zip(views, positions))])
+    return out.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ params["wo"].to(x.dtype)
 
 
 def _is_dtensor(t) -> bool:

@@ -5,7 +5,8 @@ path (training, ``Model.forward`` and ``prefill``): it decompresses
 per-head K/V and runs the masked softmax, or the blocked online softmax of
 ``attention.gqa_flash`` for long sequences, in plain products.
 ``mla_chunk`` serves restoration recompute steps, suffix prefill and
-decode.  The cache stores one row per token
+decode, ``mla_rows`` one decode token of many requests at once, each over
+its own cache.  The cache stores one row per token
 and layer: the compressed latent ``c_kv`` (kv_lora_rank) and the shared
 rotary key (qk_rope_head_dim), ``[c_kv || k_rope]`` — the row the I/O
 pointer moves.  Attention is **absorbed**: W_uk folds into the query and
@@ -137,12 +138,25 @@ def mla_chunk(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.
     if _is_dtensor(ckv_cache):          # on a mesh: through the shards holding the slots
         write_slots(ckv_cache, 1, range(p0, p0 + c), ckv)
         write_slots(kpos, 0, range(p0, p0 + c), pos_dev[0])
+        out = _attend_latent(cfg, params, q_nope, q_rope, pos_dev, ckv_cache.to(x.dtype),
+                             kpos)
     else:
-        ckv_cache[:, p0:p0 + c] = ckv
-        kpos[p0:p0 + c] = pos_dev[0]
-    out = mla_attend_absorbed(cfg, params, q_nope, q_rope, pos_dev,
-                              ckv_cache.to(x.dtype), kpos)
-    return out, ckv_cache, kpos
+        out = _write_and_attend(cfg, params, q_nope, q_rope, pos_dev, ckv, ckv_cache, kpos,
+                               p0)
+    return out @ params["wo"].to(x.dtype), ckv_cache, kpos
+
+
+def _write_and_attend(cfg: ModelConfig, params: dict, q_nope, q_rope, pos_dev, ckv,
+                     ckv_cache, kpos, p0: int):
+    """One request's chunk of C latents ``ckv`` (B, C, lora + rope) written
+    at slots p0.. of its cache (B, S, lora + rope) and kpos (S,), IN PLACE,
+    then the absorbed attention over the cache (:func:`_attend_latent`,
+    before ``wo``): (B, C, H · v_head_dim)."""
+    c = ckv.shape[1]
+    ckv_cache[:, p0:p0 + c] = ckv.to(ckv_cache.dtype)
+    kpos[p0:p0 + c] = pos_dev[0]
+    return _attend_latent(cfg, params, q_nope, q_rope, pos_dev,
+                          ckv_cache.to(q_nope.dtype), kpos)
 
 
 def mla_attend_absorbed(cfg: ModelConfig, params: dict, q_nope, q_rope, positions,
@@ -151,6 +165,13 @@ def mla_attend_absorbed(cfg: ModelConfig, params: dict, q_nope, q_rope, position
     (B, T, lora + rope) with slot positions ``kpos`` (T,), -1 empty.
     Scores sum in the compute dtype, scale and softmax in f32, and the
     probabilities are cast back before P·c_kv, as the reference."""
+    out = _attend_latent(cfg, params, q_nope, q_rope, positions, lat, kpos)
+    return out @ params["wo"].to(q_nope.dtype)
+
+
+def _attend_latent(cfg: ModelConfig, params: dict, q_nope, q_rope, positions, lat,
+                   kpos):
+    """:func:`mla_attend_absorbed` up to ``wo``: (B, C, H · v_head_dim)."""
     m = cfg.mla
     b, c = q_nope.shape[:2]
     x_dtype = q_nope.dtype
@@ -167,5 +188,21 @@ def mla_attend_absorbed(cfg: ModelConfig, params: dict, q_nope, q_rope, position
     p = torch.softmax(sc, dim=-1).to(x_dtype)
     o_lat = torch.einsum("bhct,btl->bchl", p, c_kv)                 # latent space
     out = torch.einsum("bchl,lhd->bchd", o_lat, w_uv)
-    out = out.reshape(b, c, cfg.num_heads * m.v_head_dim)
-    return out @ params["wo"].to(x_dtype)
+    return out.reshape(b, c, cfg.num_heads * m.v_head_dim)
+
+
+def mla_rows(cfg: ModelConfig, params: dict, x: torch.Tensor, pos_dev: torch.Tensor,
+             positions, views):
+    """One decode token for each of B requests, each over its own latent
+    cache: x (B, 1, D), pos_dev (B, 1) on x's device, ``positions`` the same
+    as host ints, ``views[r]`` {"ckv", "kpos"} views of row r's layer slot,
+    written IN PLACE at the row's position.  The projections and ``wo`` run
+    once for the B rows, the absorbed attention row by row.  Returns
+    (B, 1, D)."""
+    q_nope, q_rope = _project_q(cfg, params, x, pos_dev)
+    ckv = compress_kv(cfg, params, x, pos_dev)
+    out = torch.cat([_write_and_attend(cfg, params, q_nope[r:r + 1], q_rope[r:r + 1],
+                                      pos_dev[r:r + 1], ckv[r:r + 1], view["ckv"],
+                                      view["kpos"], p0)
+                     for r, (view, p0) in enumerate(zip(views, positions))])
+    return out @ params["wo"].to(x.dtype)

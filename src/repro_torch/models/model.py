@@ -20,6 +20,10 @@ takes the capacity path only in a model built with ``moe_dropless=False``;
 ``moe_groups`` runs the MoE over that many groups of the sequence, one
 after another, in the full and cached layers.
 
+``decode_rows`` is the serving engine's decode step: one token of each of
+many requests in one pass, every layer issued once for all of them, each
+request's attention over its own cache.
+
 ``decode_step_append`` is the reference's append-buffer decode: the new
 token's KV goes into a small tail (``init_tail``) and attention runs over
 [cache || tail] in ``flash_decode``, the prefix cache left read-only.
@@ -351,6 +355,37 @@ class Model:
         x = self.embed(params, tokens[:, None], positions)
         x, cache = self.stack_chunk(params, x, positions, cache)
         return self.unembed(params, x)[:, 0], cache
+
+    def can_decode_rows(self, caches) -> bool:
+        """Whether :meth:`decode_rows` takes these requests' caches: every
+        layer is attention (a recurrent or RWKV layer carries per-request
+        state), the MoE is dropless (a capacity's drops would depend on the
+        batch) and no cache is a DTensor."""
+        cfg = self.cfg
+        return (all(k == "attention" for k in cfg.layer_kinds())
+                and (cfg.moe is None or self.moe_dropless)
+                and not any(_is_dtensor(c["kpos"]) for c in caches))
+
+    def decode_rows(self, params, tokens, caches, positions):
+        """One decode token of each of B requests in one pass: ``tokens``
+        (B,) int (or (B, D) embeddings), ``caches`` the B requests' own
+        cache dicts (batch 1, each of its own length), ``positions`` one
+        host int a row.  Every layer's norms, projections and FFN and the
+        unembedding run once for the B rows; each row writes its KV into
+        its own cache, in place, and attends over it alone.  A stack that
+        :meth:`can_decode_rows` takes only.  Returns logits (B, V)."""
+        pos_dev = torch.tensor(positions, dtype=torch.int32, device=self.device)[:, None]
+        x = self.embed(params, tokens[:, None], pos_dev)
+        fields = ("ckv", "kpos") if self.cfg.mla is not None else ("k", "v", "kpos")
+        # each row's cache split into its layer slots once for the step
+        rows = [{f: c[f].unbind(0) for f in fields} for c in caches]
+        for i, p in enumerate(params["layers"]):
+            _, slot = self.slots[i]
+            views = [{f: r[f][slot] for f in fields} for r in rows]
+            x = tfm.attention_layer_rows(self.cfg, p, x, pos_dev, positions, views,
+                                         dropless=self.moe_dropless,
+                                         moe_groups=self.moe_groups)
+        return self.unembed(params, x)[:, 0]
 
     def prefill_chunk(self, params, inputs, cache, start_pos: int):
         """Chunk prefill against an existing cache: inputs (B,C) (or

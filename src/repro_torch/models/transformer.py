@@ -5,9 +5,10 @@ RG-LRU and RWKV-6 layers, each with a dense or MoE FFN.
 ``attention_layer_full`` is the whole-sequence attention layer (training,
 ``Model.forward``, ``prefill``); restoration recompute steps and
 single-token decode are the same path with C = chunk or C = 1
-(``attention_layer_cached``).  A recurrent layer carries its state (conv
-tail, h) from one chunk to the next, an RWKV layer its token shifts and
-wkv matrix; their ``*_full`` blocks serve both paths.
+(``attention_layer_cached``); ``attention_layer_rows`` decodes one token
+of many requests, each over its own cache.  A recurrent layer carries its
+state (conv tail, h) from one chunk to the next, an RWKV layer its token
+shifts and wkv matrix; their ``*_full`` blocks serve both paths.
 """
 from __future__ import annotations
 
@@ -96,6 +97,20 @@ def attention_layer_cached(cfg: ModelConfig, p: dict, x, positions,
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
     f, _ = _ffn(cfg, p, h, dropless, moe_groups)
     return x + f, new_cache
+
+
+def attention_layer_rows(cfg: ModelConfig, p: dict, x, pos_dev, positions, views, *,
+                         dropless: bool = True, moe_groups: int = 0):
+    """One decode token of each of B requests through an attention layer:
+    x (B, 1, D), the rows' positions on x's device (B, 1) and on the host,
+    ``views[r]`` row r's views of THIS layer's cache slot, updated in place
+    (``attention.attention_rows``, ``mla.mla_rows``).  The norms, the
+    projections and the FFN run once for the B rows.  Returns x'."""
+    h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    rows = mla_mod.mla_rows if cfg.mla is not None else attn.attention_rows
+    x = x + rows(cfg, p["attn"], h, pos_dev, positions, views)
+    h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+    return x + _ffn(cfg, p, h, dropless, moe_groups)[0]
 
 
 def recurrent_layer_full(cfg: ModelConfig, p: dict, x, conv_tail, h0):

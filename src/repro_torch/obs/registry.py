@@ -130,6 +130,9 @@ SPAN_CATALOG = {
     "executor.prefill": {
         "layer": "core/executor", "parent": ("engine.suffix_prefill",),
         "wait": False},
+    # a decode step's forward and token read: one each, of its rows (rid
+    # None, count the rows), where the model decodes rows together; one each
+    # a request (count None) on the per-request loop
     "executor.decode_forward": {
         "layer": "core/executor", "parent": ("engine.decode_step",),
         "wait": False},

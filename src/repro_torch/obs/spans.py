@@ -12,7 +12,8 @@ on exactly when telemetry is.  With no current recorder ``span`` returns
 A span is the tuple ``(name, t0_ns, t1_ns, parent, rid, count)``: its times
 from ``time.perf_counter_ns`` (the clock of ``time.perf_counter``), the
 list index of the span it nests in (-1 at the top level), the request id or
-None, and one optional count (bytes on the datapath, tokens of compute).
+None, and one optional count (bytes on the datapath, tokens of compute, the
+requests of a decode forward).
 A span takes its slot in the list when it opens, so that a child can name
 it, and is written there when it closes, an exception included.
 

@@ -112,13 +112,18 @@ def test_spans_are_catalogued_and_nested(served):
     # top-level spans never overlap: the host runs one op at a time
     top = sorted((s[1], s[2]) for s in spans if s[3] == -1)
     assert all(a[1] <= b[0] for a, b in zip(top, top[1:]))
-    # one forward, paged write and token read per request of a decode step
+    # a decode step: one forward and one token read of all its requests
+    # (the batched path of an attention stack), a paged write a request
     for i, s in enumerate(spans):
         if s[0] == "engine.decode_step":
             kids = [c for c in spans if c[3] == i]
-            for child in ("executor.decode_forward", "executor.paged_write",
-                          "executor.token_read"):
-                assert len([c for c in kids if c[0] == child]) == s[5], child
+            for child in ("executor.decode_forward", "executor.token_read"):
+                once = [c for c in kids if c[0] == child]
+                assert len(once) == 1, child
+                assert once[0][4] is None and once[0][5] == s[5], child
+            writes = [c for c in kids if c[0] == "executor.paged_write"]
+            assert len(writes) == s[5]
+            assert len({c[4] for c in writes}) == s[5]
     # the datapath counts the bytes it packed, and a load op those it moved
     pack = sum(s[5] for s in spans if s[0] == "datapath.pack")
     assert pack > 0 and pack == sum(s[5] for s in spans
