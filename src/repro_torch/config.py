@@ -35,6 +35,23 @@ class MoEConfig:
     dense_d_ff: int = 0           # d_ff of those dense layers
     capacity_factor: float = 1.25
     router_aux_loss: float = 0.001
+    # the routed experts this layer holds, [experts_first, experts_first +
+    # experts_held) (0 = all): one chip's share under expert parallelism.
+    # The router still scores all num_experts; the layer's output is the
+    # held experts' part of the result
+    experts_first: int = 0
+    experts_held: int = 0
+
+    def __post_init__(self):
+        first, held = self.held_range
+        if first < 0 or held < 1 or first + held > self.num_experts:
+            raise ValueError(f"experts [{first}, {first + held}) of "
+                             f"{self.num_experts}")
+
+    @property
+    def held_range(self) -> Tuple[int, int]:
+        """(first, count) of the routed experts held here."""
+        return self.experts_first, self.experts_held or self.num_experts
 
 
 @dataclass(frozen=True)
@@ -225,7 +242,7 @@ class ModelConfig:
                 shared_ff = m.shared_d_ff or m.num_shared_experts * m.expert_d_ff
                 s = self._ffn_params(shared_ff) if shared_ff else 0
                 router = d * m.num_experts
-                lp_tot += m.num_experts * e + s + router
+                lp_tot += m.held_range[1] * e + s + router
                 lp_act += m.top_k * e + s + router
             elif self.moe is not None and i < self.moe.first_k_dense:
                 f = self._ffn_params(self.moe.dense_d_ff or self.d_ff)

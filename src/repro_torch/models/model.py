@@ -472,7 +472,8 @@ class Model:
                 a = a @ p["attn"]["wo"].to(h.dtype)
             x = x + a
             h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-            f, _ = tfm._ffn(cfg, p, h, self.moe_dropless, self.moe_groups)
+            f, _ = tfm._ffn(cfg, p, h, self.moe_dropless, self.moe_groups,
+                            want_aux=False)
             x = x + f
         return x, tail
 

@@ -22,6 +22,22 @@ GShard one-hot dispatch (``_moe_group_einsum``: (T, E, cap) dispatch and
 combine tensors contracted with ``torch.einsum``, as the reference computes
 them outside any Pallas kernel).
 
+A layer may hold a share of the experts (``MoEConfig.experts_first`` /
+``experts_held``: one chip's under expert parallelism).  Its stacks then
+hold those experts alone; the router scores all ``num_experts`` and picks
+the top k among them as before, and the layer returns the held experts'
+part of the result.  A dropless buffer gives every expert a row for every
+token, so a share skips the scatter: each held expert runs all T tokens,
+``x`` broadcast to ``(held, T, D)`` (the buffer's products, the same
+FLOPs), and a token sums its held experts' outputs by the (T, E) matrix of
+its renormalised top-k weights, zero for an expert it did not pick.  No
+slot count, no scatter or gather, no data-dependent shape and no host
+sync: half the ops of the scatter a decode step issues.  Only the dropless
+path takes a share.
+
+Callers that read no load-balancing loss (the cached and row layers of
+serving) pass ``want_aux=False``, and the loss's ops are not issued.
+
 ``apply_moe``'s ``num_groups`` (a ``Model`` built with ``moe_groups``,
 through its full and cached layers) runs groups of the sequence axis one
 after another (the reference's ``lax.scan``); the serving engine builds no
@@ -38,17 +54,17 @@ from repro_torch.models.layers import _gelu, apply_mlp, dense_init, init_mlp
 
 
 def init_moe(cfg: ModelConfig, dtype, generator: torch.Generator) -> dict:
-    """Router in f32 whatever ``dtype`` (as the reference); stacked expert
-    weights (E, d, f) / (E, f, d), fan-in over d / f."""
+    """Router (d, num_experts) in f32 whatever ``dtype`` (as the
+    reference); stacked weights of the held experts (held, d, f) / (held,
+    f, d), fan-in over d / f."""
     m, d = cfg.moe, cfg.d_model
+    held = m.held_range[1]
     gated = cfg.activation in ("swiglu", "geglu")
     p = {"router": dense_init((d, m.num_experts), torch.float32, generator)}
     if gated:
-        p["w_gate"] = dense_init((m.num_experts, d, m.expert_d_ff), dtype, generator,
-                                 in_axis=1)
-    p["w_up"] = dense_init((m.num_experts, d, m.expert_d_ff), dtype, generator, in_axis=1)
-    p["w_down"] = dense_init((m.num_experts, m.expert_d_ff, d), dtype, generator,
-                             in_axis=1)
+        p["w_gate"] = dense_init((held, d, m.expert_d_ff), dtype, generator, in_axis=1)
+    p["w_up"] = dense_init((held, d, m.expert_d_ff), dtype, generator, in_axis=1)
+    p["w_down"] = dense_init((held, m.expert_d_ff, d), dtype, generator, in_axis=1)
     shared_ff = m.shared_d_ff or m.num_shared_experts * m.expert_d_ff
     if shared_ff:
         p["shared"] = init_mlp(d, shared_ff, cfg.activation, dtype, generator)
@@ -82,16 +98,21 @@ DISPATCH = "scatter"
 
 
 def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
-              dropless: bool = True):
+              dropless: bool = True, want_aux: bool = True):
     """One group of tokens through the routed experts: dropless, or with
     ``dropless=False`` and a ``capacity_factor`` > 0 the capacity path
     (through ``_moe_group_einsum`` when ``DISPATCH`` is ``"einsum"``).
+    With a share of the experts held, y is their part of the result.
 
-    x: (T, D) -> (y (T, D), aux_loss f32 scalar)
+    x: (T, D) -> (y (T, D), aux_loss f32 scalar, or None without
+    ``want_aux``)
     """
     t, d = x.shape
     e, k = moe.num_experts, moe.top_k
+    first, held = moe.held_range
     capacity = not dropless and moe.capacity_factor > 0
+    if capacity and held < e:
+        raise ValueError("a share of the experts takes the dropless path only")
     if capacity and DISPATCH == "einsum":
         return _moe_group_einsum(params, x, moe, activation,
                                  max(1, int(t * k / e * moe.capacity_factor)))
@@ -99,6 +120,8 @@ def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = top_k_lower_index_first(probs, k)                          # (T, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    if not capacity and held < e:
+        return _share_group(params, x, probs, top_p, top_i, moe, activation, want_aux)
 
     # slot of each (token, k) pair among its expert's hits: every pair has
     # one of its own in the (E, T, D) buffer
@@ -130,12 +153,38 @@ def moe_group(params: dict, x: torch.Tensor, moe: MoEConfig, activation: str,
     # combine in the reference's order and dtype
     w = top_p.reshape(t * k, 1).to(y_rep.dtype)
     y = (y_rep * w).reshape(t, k, d).sum(dim=1)
+    if not want_aux:
+        return y, None
+    return y, _aux_loss(probs, onehot.sum(dim=0).float(), moe)
 
-    # load-balancing aux loss (Switch style)
+
+def _aux_loss(probs: torch.Tensor, counts: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+    """Switch-style load-balancing loss from the router's (T, E) probs and
+    each expert's count of top-k picks (E,) f32, with no host sync."""
+    t, e = probs.shape
     me = probs.mean(dim=0)
-    ce = onehot.sum(dim=0).float() / (t * k)          # bincount, with no host sync
-    aux = e * torch.sum(me * ce) * moe.router_aux_loss
-    return y, aux
+    ce = counts / (t * moe.top_k)
+    return e * torch.sum(me * ce) * moe.router_aux_loss
+
+
+def _share_group(params: dict, x: torch.Tensor, probs, top_p, top_i, moe: MoEConfig,
+                 activation: str, want_aux: bool):
+    """The held experts' part of a dropless layer: every held expert runs
+    every token (x broadcast to the (held, T, D) buffer), and token t adds
+    expert j's output by its renormalised weight, 0 where t did not pick
+    j.  The sum over experts accumulates in f32 and rounds once, as the
+    unsplit layer's sum over a token's k picks does.  A share is one
+    chip's, so no mesh constraint applies."""
+    t, d = x.shape
+    first, held = moe.held_range
+    weight = torch.zeros_like(probs).scatter_(1, top_i, top_p)               # (T, E)
+    w = weight[:, first:first + held].t().to(x.dtype)[:, :, None]           # (held, T, 1)
+    y_buf = _expert_ffn(params, x[None].expand(held, t, d), activation)       # (held, T, D)
+    y = (y_buf * w).sum(dim=0)
+    if not want_aux:
+        return y, None
+    counts = torch.zeros_like(probs).scatter_(1, top_i, 1.0).sum(dim=0)
+    return y, _aux_loss(probs, counts, moe)
 
 
 def _replicated(fn, *tensors):
@@ -198,26 +247,27 @@ def _moe_group_einsum(params: dict, x: torch.Tensor, moe: MoEConfig, activation:
 
 
 def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, num_groups: int = 0,
-              dropless: bool = True):
+              dropless: bool = True, want_aux: bool = True):
     """x: (B, S, D) -> (y, aux_loss).  ``num_groups`` > 1 (dividing S) runs
     groups of the sequence axis one after another, each group's dispatch
     over its B·S/num_groups tokens; aux is the groups' mean.  ``dropless``
-    as in :func:`moe_group`."""
+    and ``want_aux`` as in :func:`moe_group`."""
     m = cfg.moe
     b, s, d = x.shape
     if num_groups <= 1 or s % num_groups:
-        y, aux = moe_group(params, x.reshape(b * s, d), m, cfg.activation, dropless)
+        y, aux = moe_group(params, x.reshape(b * s, d), m, cfg.activation, dropless,
+                           want_aux)
         y = y.reshape(b, s, d)
     else:
         sg = s // num_groups
         ys, auxs = [], []
         for gi in range(num_groups):
             yg, auxg = moe_group(params, x[:, gi * sg:(gi + 1) * sg].reshape(b * sg, d),
-                                 m, cfg.activation, dropless)
+                                 m, cfg.activation, dropless, want_aux)
             ys.append(yg.reshape(b, sg, d))
             auxs.append(auxg)
         y = torch.cat(ys, dim=1)
-        aux = torch.stack(auxs).mean()
+        aux = torch.stack(auxs).mean() if want_aux else None
     if "shared" in params:
         y = y + apply_mlp(params["shared"], x, cfg.activation)
     return y, aux

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
@@ -50,13 +51,15 @@ def init_layer(cfg: ModelConfig, layer_idx: int, dtype,
 
 
 def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, dropless: bool = True,
-         moe_groups: int = 0):
-    """(y, aux): the MoE's load-balancing loss (an f32 tensor), or 0.0 for a
-    dense FFN (no device op for a loss nothing reads).  ``moe_groups`` is
-    ``apply_moe``'s ``num_groups``."""
+         moe_groups: int = 0, want_aux: bool = True):
+    """(y, aux): the MoE's load-balancing loss (an f32 tensor; None without
+    ``want_aux``), or 0.0 for a dense FFN (no device op for a loss nothing
+    reads).  ``moe_groups`` is ``apply_moe``'s ``num_groups``.  A MoE call
+    is one ``model.moe`` span, its count the tokens of h (B, S, D)."""
     if "moe" in p:
-        return moe_mod.apply_moe(p["moe"], h, cfg, num_groups=moe_groups,
-                                 dropless=dropless)
+        with obs.span("model.moe", None, h.shape[0] * h.shape[1]):
+            return moe_mod.apply_moe(p["moe"], h, cfg, num_groups=moe_groups,
+                                     dropless=dropless, want_aux=want_aux)
     return apply_mlp(p["mlp"], h, cfg.activation), 0.0
 
 
@@ -95,7 +98,7 @@ def attention_layer_cached(cfg: ModelConfig, p: dict, x, positions,
         new_cache = {"k": k, "v": v, "kpos": kpos}
     x = x + a
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    f, _ = _ffn(cfg, p, h, dropless, moe_groups)
+    f, _ = _ffn(cfg, p, h, dropless, moe_groups, want_aux=False)
     return x + f, new_cache
 
 
@@ -110,7 +113,7 @@ def attention_layer_rows(cfg: ModelConfig, p: dict, x, pos_dev, positions, views
     rows = mla_mod.mla_rows if cfg.mla is not None else attn.attention_rows
     x = x + rows(cfg, p["attn"], h, pos_dev, positions, views)
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    return x + _ffn(cfg, p, h, dropless, moe_groups)[0]
+    return x + _ffn(cfg, p, h, dropless, moe_groups, want_aux=False)[0]
 
 
 def recurrent_layer_full(cfg: ModelConfig, p: dict, x, conv_tail, h0):

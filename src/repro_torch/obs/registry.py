@@ -144,6 +144,13 @@ SPAN_CATALOG = {
         "layer": "core/executor",
         "parent": ("engine.decode_step", "engine.suffix_prefill"),
         "wait": True},
+    # ---- model (models/transformer.py) ----
+    # one MoE FFN call (count: its tokens), in whichever executor op ran the
+    # layer
+    "model.moe": {
+        "layer": "models/moe",
+        "parent": ("executor.decode_forward", "executor.compute", "executor.prefill"),
+        "wait": False},
     # ---- restoration data path (core/datapath.py) ----
     "datapath.restore_op": {
         "layer": "core/datapath", "parent": _LOAD_OPS, "wait": False},

@@ -297,7 +297,13 @@ def test_registry_equals_reference():
     from repro_torch.configs import list_archs
     assert list_archs() == j_list_archs() == ALL_ARCHS
     for arch in ALL_ARCHS:
-        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get_config(arch))
+        port = dataclasses.asdict(get_config(arch))
+        if port["moe"] is not None:
+            # the port's MoE layer may hold a share of the experts, which the
+            # reference's cannot; every registered config holds them all
+            assert (port["moe"].pop("experts_first"), port["moe"].pop("experts_held")) \
+                == (0, 0)
+        assert port == dataclasses.asdict(j_get_config(arch))
 
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)

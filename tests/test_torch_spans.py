@@ -88,10 +88,12 @@ def test_spans_are_catalogued_and_nested(served):
     assert names <= set(obs.SPAN_CATALOG)
     # every layer boundary of a CPU int8 serve through the fused datapath
     # (the device waits of the ring and of measure mode need a card; an HBM
-    # hit needs the measured schedule to load "a"'s chunks before "c"'s)
+    # hit needs the measured schedule to load "a"'s chunks before "c"'s; a
+    # dense model has no MoE FFN)
     assert names >= set(obs.SPAN_CATALOG) - {"datapath.ring_wait",
                                              "datapath.measure_wait",
-                                             "engine.restore_load_hit"}
+                                             "engine.restore_load_hit",
+                                             "model.moe"}
     for i, (name, t0, t1, parent, rid, count) in enumerate(spans):
         assert t0 <= t1
         allowed = obs.SPAN_CATALOG[name]["parent"]
